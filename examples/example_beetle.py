@@ -1,6 +1,6 @@
 """Beetle-style tracking: coordinated-turn model + mode switching.
 
-TPU-native rendition of the workflow in
+JAX rendition of the workflow in
 /root/reference/examples/example_beetle.jl (dung-beetle track smoothing):
 a 2-D position/heading/velocity model with an abrupt behavioral mode
 switch ("dance"), estimated with an AdvancedParticleFilter whose state

@@ -1,6 +1,6 @@
 """Beetle tracking with an IMM of augmented-dynamics UKFs + ML tuning.
 
-TPU-native rendition of /root/reference/docs/src/beetle_example_imm.md:
+JAX rendition of the reference's docs/src/beetle_example_imm.md:
 the dung-beetle track's behavioral mode switch (goal-directed vs
 searching) is modeled as a 2-mode Interacting-Multiple-Models filter
 whose modes are two augmented-dynamics UKFs differing only in how much

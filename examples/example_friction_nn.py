@@ -1,6 +1,6 @@
 """Learning friction dynamics with a neural network inside an EKF.
 
-TPU-native rendition of the reference's UDE-style friction tutorial
+JAX rendition of the reference's UDE-style friction tutorial
 (/root/reference/docs/src/friction_nn_example.md): an actuated mass obeys
 known physics (Newton's second law) but an UNKNOWN friction force with
 Stribeck effect that additionally drifts over time.  A small MLP models
@@ -17,7 +17,7 @@ Structure priors mirrored from the reference:
 - measurement: physical states only, via an IndexingMatrix-backed
   LinearMeasurementModel (no dense [ny, nx+nw] matrix).
 
-TPU-idiomatic differences: `jax.jacfwd` through the augmented dynamics
+JAX-idiomatic differences: `jax.jacfwd` through the augmented dynamics
 replaces the hand-wired sparse-Jacobian machinery; the whole filter pass
 is ONE `lax.scan` under jit.
 

@@ -1,6 +1,6 @@
 """Linear-Gaussian benchmark: KF vs PF vs smoothers, loglik landscapes.
 
-TPU-native rendition of /root/reference/examples/example_lineargaussian.jl
+JAX rendition of the reference's examples/example_lineargaussian.jl
 (the system behind docs/src/benchmark.md): a 2-state rotation-like system
 where the KalmanFilter is exact, so every other estimator can be checked
 against it, and the log-likelihood as a function of the noise scales peaks

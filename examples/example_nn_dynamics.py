@@ -1,6 +1,6 @@
 """Adaptive neural-network dynamics learning with a state estimator.
 
-TPU-native rendition of the reference's adaptive-NN workflow
+JAX rendition of the reference's adaptive-NN workflow
 (/root/reference/docs/src/neural_network.md): treat the weights of a
 black-box neural-network dynamics model as *state variables* and let a
 nonlinear Kalman filter estimate them online, jointly with the physical
@@ -8,7 +8,7 @@ state.  The filter IS the training algorithm — every measurement update
 is one implicit Gauss-Newton step on the weights, and the weight
 covariance quantifies how much the network has learned.
 
-Differences from the reference are deliberate and TPU-idiomatic:
+Differences from the reference are deliberate and JAX-idiomatic:
 - the network Jacobian comes from `jax.jacfwd` through the augmented
   dynamics (the reference wires up DifferentiationInterface + sparsity
   detection by hand),

@@ -1,7 +1,7 @@
 """Nonlinear filter comparison: UKF vs EKF vs IEKF.
 
 Re-derivation of /root/reference/examples/example_nonlinear_kf.jl for the
-TPU-native framework: two classic nonlinear benchmarks — a bearings-only
+JAX framework: two classic nonlinear benchmarks — a bearings-only
 tracking problem and the scalar "growth" model — filtered by the UKF, the
 EKF, and the iterated EKF, comparing Monte-Carlo RMS state errors.
 

@@ -2,15 +2,12 @@
 
 The reference's filtering/smoothing loops are sequential O(T)
 (/root/reference/src/filtering.jl:293-315, src/smoothing.jl:8-45) — the
-right design for one CPU core.  On TPU the same single-stream workload
-runs in O(log T) depth: `parallel_forward_trajectory` /
+right design for one CPU core.  On an accelerator the same single-stream
+workload runs in O(log T) depth: `parallel_forward_trajectory` /
 `parallel_rts_smooth` for linear-Gaussian models, and
 `parallel_ukf_smooth` (iterated posterior-linearization with unscented
 SLR) for nonlinear ones.  This example runs both on a constant-velocity
 target-tracking model and checks them against the sequential filters.
-
-Measured v5e T-slopes (see docs/performance.md §5): parallel KF
-2.0 ns/step; full nonlinear filter+smoother 41 ns/step at iters=4.
 """
 import jax
 import jax.numpy as jnp
@@ -38,7 +35,7 @@ def main(T: int = 2_000):
     # --- nonlinear: iterated sigma-point smoother on a 1-D drag model ---
     # (2-state so the CPU test compile stays fast; the plane pipeline's
     # unrolled combine graph grows ~nx³ and nx=4 compiles for minutes on
-    # the XLA CPU backend — on TPU compile is server-side and cached)
+    # the XLA CPU backend)
     def dyn(x, u, p, t):
         v = x[1]
         drag = 0.05 * jnp.sqrt(jnp.abs(v) + 1e-3) * v

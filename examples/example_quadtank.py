@@ -1,6 +1,6 @@
 """Quadtank example: nonlinear state estimation with UKF / EKF / PF.
 
-TPU-native rendition of /root/reference/examples/example_quadtank.jl —
+JAX rendition of the reference's examples/example_quadtank.jl —
 the standard four-tank laboratory process (Johansson 2000), a textbook
 nonlinear benchmark: four coupled tanks with square-root outflows and two
 pumps feeding diagonally opposite pairs.

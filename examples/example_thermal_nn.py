@@ -1,6 +1,6 @@
 """Learning a solar-insolation disturbance model with a UKF + RBF basis.
 
-TPU-native rendition of the reference's thermal/SciML tutorial
+JAX rendition of the reference's thermal/SciML tutorial
 (/root/reference/docs/src/thermal_nn_example.md): the temperature of a
 house is driven by a heater (known), heat loss to a known external
 temperature, and sun shining in through windows — an UNKNOWN, partly

@@ -1,18 +1,16 @@
-"""lowlevelparticlefilters_jl_tpu — TPU-native state estimation in JAX.
+"""lowlevelparticlefilters_jl_tpu — state estimation in JAX.
 
 A ground-up re-design of the capabilities of LowLevelParticleFilters.jl
-(reference mounted at /root/reference) for TPU hardware:
+for accelerators:
 
 - filters are immutable pytree dataclasses; `predict`/`correct`/`update`
   are pure functions (jit/grad/vmap-compatible end to end),
 - the sequential trajectory loop is `lax.scan`; particle/sigma-point/
   ensemble axes are `vmap`-ed and mesh-shardable (`parallel/`),
-- systematic-resampling indices are one MXU one-hot matmul (TPU
-  scatters/searchsorted serialize or blow up at N>=1e5; ops/resample.py),
+- systematic-resampling indices are one one-hot matmul (ops/resample.py),
   weight normalization is a fused max/exp/sum pass,
-- Pallas kernels where XLA's granularity loses: hardware-PRNG particle
-  noise (ops/pallas/noise.py) and the whole-scan sequential UKF
-  (ops/pallas/ukf_scan.py, 5x the XLA scan),
+- long linear trajectories have an O(log T)-depth temporal-parallel
+  filter and smoother (parallel/temporal.py, ``method="parallel"``),
 - gradients of the data log-likelihood flow through the whole filter
   (reverse-mode, replacing the reference's ForwardDiff).
 
@@ -142,11 +140,6 @@ from .smoothing import (
     smoothed_trajs,
 )
 
-from .ops.pallas.ukf_scan import (
-    ukf_loglik_fused, ekf_loglik_fused,
-    ukf_forward_trajectory_fused, ekf_forward_trajectory_fused)
-from .ops.pallas.pf_scan import (
-    pf_loglik_fused, pf_mean_fused, pf_stats_fused, pf_scan_supported)
 from .parallel.temporal import (
     parallel_forward_trajectory,
     parallel_rts_smooth,

@@ -1,6 +1,6 @@
 """Bank execution of a SHARED linear Kalman filter over many datasets.
 
-TPU-native re-design of the reference's "bank of filters" workload
+A JAX re-design of the reference's "bank of filters" workload
 (/root/reference/docs/src/benchmark.md:63-117 runs the same
 `KalmanFilter` over many independent trajectories).  A `vmap` over
 `forward_trajectory` replicates the covariance/gain Riccati recursion
@@ -13,7 +13,7 @@ affine map on the bank means,
     x⁺ = (A - A·K·C)·x + A·K·y + (B - A·K·D)·u,
 
 and evaluates the whole bank as bank-major ``[B, nx] @ [nx, nx]``
-matmuls (MXU-shaped, one per step) with every data-drive term
+matmuls (one per step) with every data-drive term
 precomputed OUTSIDE the scan as one batched einsum over the full
 sequence.  Per step the scan body is two matmuls and an elementwise
 reduction — the minimum the recursion admits.
@@ -31,7 +31,6 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.matrices import resolve_mat
-from ..routing import _under_batch_trace
 from ..utils.struct import struct, field
 from .kalman import _LOG2PI, kf_correct, kf_predict
 
@@ -90,7 +89,7 @@ def _shared_recursion(kf, T, dtype):
     parallel filter, so it runs through the plane-pipeline associative
     scan (`parallel/temporal._parallel_filter_core_p` on zero data) —
     O(log T) depth instead of a T-step sequential scan whose per-step
-    fusion-launch latency (~10 µs on v5e) dominated the whole bank pass.
+    launch latency would dominate the whole bank pass.
 
     General path: reuses `kf_correct`/`kf_predict` on a zero mean so
     R12 / alpha follow the exact production code path; harvests per-step
@@ -154,11 +153,11 @@ def _bank_inputs(kf, us, ys):
 
 def _bank_loglik_planes(kf, us, ys, Bk, T, dtype, Schol, K, A, Bm, C, D):
     """Lane-major ("plane") bank log-likelihood: every [T, ·, small]
-    intermediate is a [T] or [T, B] plane (a [B, T, ny] einsum layout
-    pads ny onto 128 lanes — 64× physical traffic on TPU), and the bank
-    mean recursion x⁺ = M_t x + d_t is prefix-composed with an
-    associative_scan instead of a T-step sequential scan (~10 µs/step
-    fusion-launch latency regardless of B)."""
+    intermediate is a [T] or [T, B] plane instead of a [B, T, ny] layout
+    with a tiny minor dimension, and the bank mean recursion
+    x⁺ = M_t x + d_t is prefix-composed with an associative_scan instead
+    of a T-step sequential scan (a per-step launch cost regardless of
+    B)."""
     from ..parallel.temporal import (
         _m_split, _mm_p, _mt_p, _msub_p, _trisolve_lower_p)
 
@@ -214,7 +213,7 @@ def _bank_loglik_planes(kf, us, ys, Bk, T, dtype, Schol, K, A, Bm, C, D):
     return jnp.sum(lls, 0)
 
 
-def _bank_scan(kf, us, ys, want_states: bool, method: str = "auto"):
+def _bank_scan(kf, us, ys, want_states: bool):
     """Shared precompute + bank-major scan.  Returns
     (ll[B], x[B,T,nx], xt[B,T,nx], e[B,T,ny], R[T,nx,nx], Rt[T,nx,nx])
     with the state outputs None when ``want_states`` is False."""
@@ -223,34 +222,6 @@ def _bank_scan(kf, us, ys, want_states: bool, method: str = "auto"):
     nx, ny = kf.nx, kf.ny
     Rs, Schol, K, Rf, A, Bm, C, D = _shared_recursion(kf, T, dtype)
     if not want_states and nx <= 8 and ny <= 8:
-        # round-5 whole-scan bank kernel: the sequential mean/ll
-        # recursion with the bank resident in VMEM beats the prefix-
-        # compose's log2(T) HBM passes over [T, B] planes at large B
-        # (ops/pallas/bank_scan.py); batch traces and off-TPU fall back,
-        # jvp/grad re-route through the plane path via route_ad
-        from ..ops.pallas import bank_scan as _bs
-
-        nu = us.shape[-1]
-        if method == "kernel":
-            if not _bs.bank_kernel_supported(T, Bk, nx, ny, nu, dtype):
-                raise ValueError(
-                    "bank kernel unsupported for this config "
-                    "(see ops/pallas/bank_scan.py::bank_kernel_supported)")
-            use_kernel = True
-        else:
-            use_kernel = (method == "auto" and _bs._route_on_tpu()
-                          and _bs.bank_kernel_profitable(T, Bk, nx, ny,
-                                                         nu, dtype))
-        if (use_kernel and dtype == jnp.float32
-                and not _under_batch_trace(kf, us, ys)):
-            from ..ops.pallas.adroute import route_ad
-
-            kern = lambda u_, y_: _bs.bank_loglik_kernel(
-                kf, u_, y_, Schol, K, A, Bm, C, D)
-            xla = lambda u_, y_: _bank_loglik_planes(
-                kf, u_, y_, Bk, T, dtype, Schol, K, A, Bm, C, D)
-            ll = route_ad(kern, xla, us, ys)
-            return ll, None, None, None, Rs, Rf
         ll = _bank_loglik_planes(kf, us, ys, Bk, T, dtype, Schol, K,
                                  A, Bm, C, D)
         return ll, None, None, None, Rs, Rf
@@ -323,16 +294,21 @@ def kf_bank_loglik(kf, us, ys, method: str = "auto") -> jax.Array:
     means advanced by bank-major matmuls.
 
     ``ys``: ``[B, T, ny]``; ``us``: ``[B, T, nu]``, shared ``[T, nu]``,
-    or None.  ``method``: ``"auto"`` (whole-scan VMEM kernel on TPU,
-    plane path elsewhere), ``"kernel"``, or ``"plane"``.
+    or None.  ``method``: ``"auto"`` or its alias ``"plane"`` (the
+    prefix-composed plane path for nx, ny ≤ 8; the bank-major scan
+    above that).
     """
-    if method not in ("auto", "kernel", "plane"):
+    if method == "kernel":
+        raise ValueError(
+            "kf_bank_loglik(method='kernel') was removed together with the "
+            "whole-scan bank kernel; use method='auto'")
+    if method not in ("auto", "plane"):
         raise ValueError(f"unknown bank method {method!r}")
     if not kf_bank_admissible(kf):
         ll1 = lambda u, y: _vmap_loglik(kf, u, y)
         us, ys, _, _ = _bank_inputs(kf, us, ys)
         return jax.vmap(ll1)(us, ys)
-    ll, *_ = _bank_scan(kf, us, ys, want_states=False, method=method)
+    ll, *_ = _bank_scan(kf, us, ys, want_states=False)
     return ll
 
 
@@ -365,9 +341,9 @@ def ukf_bank_loglik(f, us, ys) -> jax.Array:
     (x, u) (jaxpr walk, cf. parallel/temporal.py), the unscented/Jacobian
     linearization is EXACT — the filter's posterior equals a Kalman
     filter on the per-step Jacobian model — so the bank routes through
-    :func:`kf_bank_loglik`'s shared-Riccati plane pipeline (~100× the
-    generic vmapped bank on v5e; the reference benchmarks its UKF on
-    exactly such a linear CV model, docs/src/benchmark.md:120-158).
+    :func:`kf_bank_loglik`'s shared-Riccati plane pipeline (the reference
+    benchmarks its UKF on exactly such a linear CV model,
+    docs/src/benchmark.md:120-158).
     Affine biases fold into an augmented input column (u' = [u; 1],
     B' = [B c], D' = [D d]).  Anything non-affine (or augmented
     dynamics / callable covariances) falls back to ``vmap(loglik)``.

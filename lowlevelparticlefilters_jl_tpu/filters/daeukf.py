@@ -1,6 +1,6 @@
 """DAE Unscented Kalman filter (Mandela, Rengaswamy & Narasimhan 2010).
 
-TPU-native re-design of /root/reference/src/ukf.jl:988-1397
+A JAX re-design of the reference's src/ukf.jl:988-1397
 (`DAEUnscentedKalmanFilter`, `calc_xz` :1164-1183, predict! :1251-1306,
 correct! :1337-1397): state estimation for semi-explicit DAE systems
 

@@ -1,6 +1,6 @@
 """Extended Kalman filter (+ iterated variant constructor).
 
-TPU-native re-design of /root/reference/src/ekf.jl and src/iekf.jl.  The
+A JAX re-design of the reference's src/ekf.jl and src/iekf.jl.  The
 reference wraps an inner `KalmanFilter` and mutates it; here the EKF is a
 standalone pytree filter sharing the common Gaussian `KFState`.  Jacobians
 default to `jax.jacfwd` (the ForwardDiff analogue, ekf.jl:96-103).
@@ -102,19 +102,13 @@ class ExtendedKalmanFilter(AbstractKalmanFilter):
         return model.correct(self, state, u, y, p, t, R2=R2)
 
     # ------------------------------------------------------------------
-    def smooth(self, u, y, p=None, sol=None, fused=False, **kwargs):
+    def smooth(self, u, y, p=None, sol=None, **kwargs):
         """EKF-RTS smoother re-linearizing A at the smoothed point
-        (ekf.jl:193-225: ``A = Ajac(xT[t+1], u[t+1], ...)``).
-
-        ``fused=True``: forward pass via the whole-scan pallas kernel
-        (:meth:`forward_trajectory_fused`); opt-in — f32 and not
-        differentiable."""
+        (ekf.jl:193-225: ``A = Ajac(xT[t+1], u[t+1], ...)``)."""
         from ..trajectory import forward_trajectory
         from ..utils.solutions import KalmanSmoothingSolution
 
         p = self.p if p is None else p
-        if sol is None and fused:
-            sol = self.forward_trajectory_fused(u, y)
         if sol is None:
             sol = forward_trajectory(self, u, y, p, **kwargs)
         x, xt, R, Rt = sol.x, sol.xt, sol.R, sol.Rt
@@ -137,25 +131,6 @@ class ExtendedKalmanFilter(AbstractKalmanFilter):
         xT = jnp.concatenate([xT_rest, xt[-1:]], axis=0)
         RT = jnp.concatenate([RT_rest, Rt[-1:]], axis=0)
         return KalmanSmoothingSolution(sol=sol, xT=xT, RT=RT)
-
-    def loglik_fused(self, ys, us=None):
-        """Whole-trajectory log-likelihood as ONE pallas kernel
-        (ops/pallas/ukf_scan.py::ekf_loglik_fused): ~2.3 us/step vs ~10 us
-        for the XLA scan at nx=4 on v5e.  Falls back to the XLA scan
-        off-TPU or outside the kernel's scope (R12, callable noise,
-        non-EKF measurement models)."""
-        from ..ops.pallas.ukf_scan import ekf_loglik_fused
-
-        return ekf_loglik_fused(self, ys, us)
-
-    def forward_trajectory_fused(self, us, ys):
-        """Full :class:`KalmanFilteringSolution` from the same whole-scan
-        pallas kernel as :meth:`loglik_fused` (per-step x/xt/R/Rt/e/S/K
-        solution planes); falls back to the XLA scan off-TPU or outside
-        the kernel's scope."""
-        from ..ops.pallas.ukf_scan import ekf_forward_trajectory_fused
-
-        return ekf_forward_trajectory_fused(self, us, ys)
 
     # -- simulation hooks (ekf.jl:227-272) -------------------------------
     def sample_initial(self, key, p=None, noise=True):

@@ -1,11 +1,11 @@
 """Stochastic Ensemble Kalman filter with perturbed observations.
 
-TPU-native re-design of /root/reference/src/enkf.jl (struct :77-96, ctor
+A JAX re-design of the reference's src/enkf.jl (struct :77-96, ctor
 :98-144, predict! :228-269, correct! :279-356).  The reference stores the
 ensemble as a Vector-of-Vectors and loops members (optionally threaded,
 enkf.jl:247-249); here the ensemble is one [N, nx] array — member
 propagation is `vmap`, the anomaly products ``Xa' Ya`` / ``Ya' Ya`` are
-single [nx|ny, N] × [N, ny] matmuls that XLA tiles onto the MXU, and the
+single [nx|ny, N] × [N, ny] matmuls, and the
 ensemble axis can be mesh-sharded like particles (see parallel/).
 """
 from __future__ import annotations
@@ -137,7 +137,7 @@ class EnsembleKalmanFilter(AbstractKalmanFilter):
         ybar = jnp.mean(Y, axis=0)
         Xa = state.X - xbar  # [N, nx] anomalies
         Ya = Y - ybar        # [N, ny]
-        # S = YaᵀYa/(N-1) + R2; Rxy = XaᵀYa/(N-1) — MXU matmuls.
+        # S = YaᵀYa/(N-1) + R2; Rxy = XaᵀYa/(N-1) — two matmuls.
         S = symmetrize(Ya.T @ Ya / (N - 1)) + R2
         Schol = chol_lower(S)
         Rxy = Xa.T @ Ya / (N - 1)

@@ -1,6 +1,6 @@
 """Interacting Multiple Models (IMM) filter.
 
-TPU-native re-design of /root/reference/src/imm.jl (struct :3-15, ctor
+A JAX re-design of the reference's src/imm.jl (struct :3-15, ctor
 :49-67, interact! :86-117, correct! :139-163, combine! :170-190, update!
 :214-220, forward_trajectory :271-297).
 

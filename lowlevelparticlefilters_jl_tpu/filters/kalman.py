@@ -1,6 +1,6 @@
 """Linear Kalman filter.
 
-TPU-native re-design of /root/reference/src/kalman.jl (struct :26-44, ctor
+A JAX re-design of the reference's src/kalman.jl (struct :26-44, ctor
 :75-86) and the linear predict/correct math in src/filtering.jl:52-128.
 State lives in an immutable :class:`KFState`; `predict`/`correct` are pure
 and batchable — `vmap` over a stacked `KalmanFilter` pytree gives the
@@ -97,8 +97,12 @@ def _add_input(x, Bt, u):
 
 def kf_predict(x, R, At, Bt, u, R1, alpha=1.0):
     """x⁺ = A x + B u;  R⁺ = α·sym(A R Aᵀ) + R1  (filtering.jl:52-74)."""
-    x = _add_input(At @ x, Bt, u)
-    R = alpha * symmetrize(At @ R @ At.T) + R1
+    # kf_predict/kf_correct products are pinned to full f32: at default
+    # precision a vmapped bank of loglik evaluations on a GPU changed with
+    # the batch size (mesh vs one-card PMMH chains diverged, H100)
+    with jax.default_matmul_precision("highest"):
+        x = _add_input(At @ x, Bt, u)
+        R = alpha * symmetrize(At @ R @ At.T) + R1
     return x, R
 
 
@@ -109,23 +113,24 @@ def kf_correct(x, R, Ct, Dt, u, y, R2, R12=None):
     noise branch (``R12``) follows Simon's *Optimal State Estimation* Eq.
     7.14 as in the reference (filtering.jl:106-116).
     """
-    e = y - Ct @ x
-    e = e - Dt @ jnp.asarray(u) if (Dt is not None and u is not None and jnp.size(u)) else e
-    if R12 is not None:
-        CR12 = Ct @ R12
-        S = symmetrize(Ct @ R @ Ct.T + CR12 + CR12.T) + R2
-        Schol = chol_lower(S)
-        K = rdiv_chol(R @ Ct.T + R12, Schol)
-        x = x + K @ e
-        R = symmetrize((jnp.eye(R.shape[-1], dtype=R.dtype) - K @ Ct) @ R - K @ R12.T)
-    else:
-        S = symmetrize(Ct @ R @ Ct.T) + R2
-        Schol = chol_lower(S)
-        K = rdiv_chol(R @ Ct.T, Schol)
-        x = x + K @ e
-        R = symmetrize((jnp.eye(R.shape[-1], dtype=R.dtype) - K @ Ct) @ R)
-    ll = mvnormal_logpdf(e, jnp.zeros_like(e), Schol)
-    return x, R, KalmanInfo(ll=ll, e=e, S=S, Schol=Schol, K=K)
+    with jax.default_matmul_precision("highest"):
+        e = y - Ct @ x
+        e = e - Dt @ jnp.asarray(u) if (Dt is not None and u is not None and jnp.size(u)) else e
+        if R12 is not None:
+            CR12 = Ct @ R12
+            S = symmetrize(Ct @ R @ Ct.T + CR12 + CR12.T) + R2
+            Schol = chol_lower(S)
+            K = rdiv_chol(R @ Ct.T + R12, Schol)
+            x = x + K @ e
+            R = symmetrize((jnp.eye(R.shape[-1], dtype=R.dtype) - K @ Ct) @ R - K @ R12.T)
+        else:
+            S = symmetrize(Ct @ R @ Ct.T) + R2
+            Schol = chol_lower(S)
+            K = rdiv_chol(R @ Ct.T, Schol)
+            x = x + K @ e
+            R = symmetrize((jnp.eye(R.shape[-1], dtype=R.dtype) - K @ Ct) @ R)
+        ll = mvnormal_logpdf(e, jnp.zeros_like(e), Schol)
+        return x, R, KalmanInfo(ll=ll, e=e, S=S, Schol=Schol, K=K)
 
 
 @struct
@@ -223,66 +228,6 @@ class KalmanFilter(AbstractKalmanFilter):
         R12 = resolve_mat(self.R12, state.x, u, p, t, Ts=self.Ts)
         x, R, info = kf_correct(state.x, state.R, Ct, Dt, u, y, R2, R12)
         return KFState(x=x, R=R, t=state.t), info
-
-    def _fused_delegate(self):
-        """EKF wrapper for the fused whole-scan kernel: the (constant)
-        system matrices become traced callbacks.  None when out of
-        scope (time-varying/callable matrices, R12, traced alpha)."""
-        from .ekf import make_ekf
-
-        const = all(
-            M is None or isinstance(M, jax.Array) and M.ndim <= 2
-            for M in (self.A, self.B, self.C, self.D, self.R1, self.R2)
-        )
-        if not const or self.R12 is not None or not isinstance(
-            self.alpha, (int, float)
-        ):
-            return None
-        A, B, C, D = self.A, self.B, self.C, self.D
-
-        def dyn(x, u, p, t):
-            xn = A @ x
-            if B is not None and u is not None and u.shape[-1]:
-                xn = xn + B @ u
-            return xn
-
-        def meas(x, u, p, t):
-            y = C @ x
-            if D is not None and u is not None and u.shape[-1]:
-                y = y + D @ u
-            return y
-
-        return make_ekf(
-            dyn, meas, self.R1, self.R2, d0=self.d0, nu=max(self.nu, 0),
-            ny=self.ny, Ts=self.Ts, alpha=self.alpha,
-            Ajac=lambda x, u, p, t: A, Cjac=lambda x, u, p, t: C,
-        )
-
-    def loglik_fused(self, ys, us=None):
-        """Whole-trajectory log-likelihood as ONE pallas kernel by
-        delegating to the EKF kernel with the (constant) system matrices
-        as traced callbacks (ops/pallas/ukf_scan.py::ekf_loglik_fused).
-        Falls back to the XLA scan for time-varying/callable matrices,
-        R12, traced alpha, or off-TPU."""
-        from ..ops.pallas.ukf_scan import ekf_loglik_fused
-        from ..trajectory import loglik as xla_loglik
-
-        ekf = self._fused_delegate()
-        if ekf is None:
-            return xla_loglik(self, us, ys, method="sequential")
-        return ekf_loglik_fused(ekf, ys, us)
-
-    def forward_trajectory_fused(self, us, ys):
-        """Full :class:`KalmanFilteringSolution` via the fused EKF-kernel
-        delegation (per-step x/xt/R/Rt/e/S/K solution planes); falls
-        back to the XLA scan when the delegation is out of scope."""
-        from ..ops.pallas.ukf_scan import ekf_forward_trajectory_fused
-        from ..trajectory import forward_trajectory
-
-        ekf = self._fused_delegate()
-        if ekf is None:
-            return forward_trajectory(self, us, ys, method="sequential")
-        return ekf_forward_trajectory_fused(ekf, us, ys)
 
     # ------------------------------------------------------------------
     def measurement_fn(self) -> Callable:

@@ -1,6 +1,6 @@
 """Marginalized Unscented Kalman filter (MUKF).
 
-TPU-native re-design of /root/reference/src/mukf.jl (model :100-131,
+A JAX re-design of the reference's src/mukf.jl (model :100-131,
 partition helpers :442-467, predict! :490-590, correct! :592-756),
 implementing the Marginalized Unscented Transform of Morelande & Moran
 (2007): sigma points span only the *nonlinear* substate, the

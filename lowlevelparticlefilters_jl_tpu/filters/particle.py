@@ -1,11 +1,11 @@
 """Particle filters: bootstrap, advanced (non-additive noise), auxiliary.
 
-TPU-native re-design of /root/reference/src/PFtypes.jl and the particle
+A JAX re-design of the reference's src/PFtypes.jl and the particle
 branches of src/filtering.jl:140-234.  The reference's per-particle loops
 (PFtypes.jl:107-139, optionally `Threads.@threads` :229-231) become `vmap`
 over a [N, nx] particle array; weight normalization is a fused
 max/exp/sum pass (ops/logsumexp.py); resampling is prefix-sum +
-binary-search (ops/resample.py).  The Neff-triggered resampling branch
+closed-form slot counting (ops/resample.py).  The Neff-triggered resampling branch
 (resample.jl:5-10) is a `lax.cond` so the resampling cost is only paid on
 steps that actually fire while the scan body stays shape-static.
 
@@ -78,8 +78,8 @@ class _ParticleCommon(AbstractParticleFilter):
         trigger (resample.jl:5-10).
 
         The Neff trigger is a `lax.cond`: XLA executes only the taken
-        branch at runtime, so the resampling cost (~1 ms at N=1e5 on TPU,
-        dominated by the permutation) is paid only on the steps that
+        branch at runtime, so the resampling cost (dominated by the
+        permutation) is paid only on the steps that
         actually resample — with the reference-default threshold 0.1 that
         is every ~10-30 steps.
         """
@@ -142,19 +142,13 @@ class _ParticleCommon(AbstractParticleFilter):
 
     def loglik(self, u, y, p=None, *, key: jax.Array = None,
                state0: PFState = None, method: str = "auto"):
-        """Low-memory total log-likelihood (smoothing.jl:227-230).
+        """Low-memory total log-likelihood (smoothing.jl:227-230): one
+        ``lax.scan`` of the update step.  ``method`` is accepted for
+        parity with the Kalman verbs; every value runs the same scan."""
+        from ..routing import _check_method, _record
 
-        ``method="auto"`` dispatches to the fastest supported execution:
-        on TPU a supported bootstrap filter runs the whole-scan Mosaic
-        kernel (ops/pallas/pf_scan.py, routing.py) — same estimator,
-        hardware-PRNG draws seeded from ``key``.  ``method="sequential"``
-        forces the XLA scan; differentiation works on every route.
-        """
-        from ..routing import route_pf_loglik
-
-        routed = route_pf_loglik(self, u, y, p, key, state0, method)
-        if routed is not None:
-            return routed
+        _check_method(method)
+        _record("loglik", "xla_scan")
         y = jnp.asarray(y)
         T = y.shape[0]
         u_seq = _as_u_seq(u, T, y.dtype)
@@ -213,7 +207,6 @@ class ParticleFilter(_ParticleCommon):
     Ts: float = static_field(default=1.0)
     nu: int = static_field(default=-1)
     ny: int = static_field(default=-1)
-    noise_backend: str = static_field(default="threefry")
 
     def __post_init__(self):
         o = object.__setattr__
@@ -229,8 +222,6 @@ class ParticleFilter(_ParticleCommon):
                     and hasattr(v, "dim") and not hasattr(v, "shape")):
                 continue
             o(self, name, as_mvnormal(v))
-        if self.noise_backend not in ("threefry", "pallas"):
-            raise ValueError("noise_backend must be 'threefry' or 'pallas'")
 
     @property
     def nx(self) -> int:
@@ -257,21 +248,10 @@ class ParticleFilter(_ParticleCommon):
         t = state.t * self.Ts if t is None else t
         x, did_resample, key = self._maybe_resample(state)
         f = self.dynamics
-        if self.noise_backend == "pallas" and self.dynamics_density is not None:
-            # fused VMEM propagate + hardware-PRNG noise (ops/pallas/noise.py)
-            from ..ops.pallas.noise import propagate_gaussian
-
+        xn = jax.vmap(lambda xi: f(xi, u, p, t))(x)
+        if self.dynamics_density is not None:
             key, kn = jax.random.split(key)
-            seed = jax.random.randint(kn, (), 0, jnp.int32(2**31 - 1))
-            dyn_b = jax.vmap(lambda xi: f(xi, u, p, t))
-            xn = propagate_gaussian(
-                dyn_b, x, self.dynamics_density.chol(), seed
-            ).astype(x.dtype)
-        else:
-            xn = jax.vmap(lambda xi: f(xi, u, p, t))(x)
-            if self.dynamics_density is not None:
-                key, kn = jax.random.split(key)
-                xn = xn + self.dynamics_density.sample(kn, (self.N,))
+            xn = xn + self.dynamics_density.sample(kn, (self.N,))
         w0, we0 = _uniform_weights(self.N, state.w.dtype)
         w = jnp.where(did_resample, w0, state.w)
         we = jnp.where(did_resample, we0, state.we)

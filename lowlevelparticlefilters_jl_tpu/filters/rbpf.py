@@ -1,6 +1,6 @@
 """Rao-Blackwellized (marginalized) particle filter.
 
-TPU-native re-design of /root/reference/src/rbpf.jl (RBParticle :1-34,
+A JAX re-design of the reference's src/rbpf.jl (RBParticle :1-34,
 RBMeasurementModel :46-60, RBPF :63-144, predict! :163-232, correct!
 :235-283), implementing "model 2" of Schön, Gustafsson & Nordlund (2004),
 "Marginalized Particle Filters for Mixed Linear/Nonlinear State-space
@@ -19,7 +19,7 @@ The single-Riccati optimization (rbpf.jl:177, 247: when An/A/C/R1 are
 constant matrices all particles share one covariance recursion) is a
 static configuration here — ``single_riccati=True`` stores ONE [nxl,nxl]
 covariance and broadcasts the gain, turning N Riccati recursions into one
-plus an [N,ny]×[ny,nxl] MXU matmul.
+plus an [N,ny]×[ny,nxl] matmul.
 """
 from __future__ import annotations
 
@@ -187,7 +187,7 @@ class RBPF(AbstractParticleFilter):
             S = symmetrize(C @ state.R @ C.T) + R2
             Schol = chol_lower(S)
             K = rdiv_chol(state.R @ C.T, Schol)  # [nxl, ny]
-            xl = state.xl + e @ K.T              # one MXU matmul for all N
+            xl = state.xl + e @ K.T              # one matmul for all N
             Rn = symmetrize(
                 (jnp.eye(self.nxl, dtype=xl.dtype) - K @ C) @ state.R
             )

@@ -1,6 +1,6 @@
 """Square-root Kalman filters (linear and extended) via QR updates.
 
-TPU-native re-design of /root/reference/src/sq_kalman.jl (QR-only
+A JAX re-design of the reference's src/sq_kalman.jl (QR-only
 square-root KF, Tracy 2022, arXiv:2208.06452) and src/sq_ekf.jl.  The
 state covariance is stored as its upper-triangular Cholesky factor ``U``
 (Σ = UᵀU); both time and measurement updates are thin QR factorizations,

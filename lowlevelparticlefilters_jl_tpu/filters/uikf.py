@@ -1,6 +1,6 @@
 """Unknown-input Kalman filter (Gillijns & De Moor 2007).
 
-TPU-native re-design of /root/reference/src/uikf.jl (struct :49-52,
+A JAX re-design of the reference's src/uikf.jl (struct :49-52,
 correct! :82-181, forward_trajectory :205-214): unbiased minimum-variance
 joint input+state estimation for ``x⁺ = Ax + Bu + G d + w`` with unknown
 ``d``.  The correct step is a weighted-least-squares input estimate

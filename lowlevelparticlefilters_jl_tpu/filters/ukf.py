@@ -1,6 +1,6 @@
 """Unscented Kalman filter with additive or augmented noise forms.
 
-TPU-native re-design of /root/reference/src/ukf.jl:232-925.  The
+A JAX re-design of the reference's src/ukf.jl:232-925.  The
 reference's four boolean type parameters {IPD, IPM, AUGD, AUGM} collapse
 to two static flags: in-place forms do not exist in JAX, and
 augmented-ness is `augmented_dynamics` here plus `augmented` on the
@@ -151,25 +151,17 @@ class UnscentedKalmanFilter(AbstractKalmanFilter):
         return model.correct(self, state, u, y, p, t, R2=R2)
 
     # ------------------------------------------------------------------
-    def smooth(self, u, y, p=None, sol=None, fused=False, **kwargs):
+    def smooth(self, u, y, p=None, sol=None, **kwargs):
         """Unscented RTS smoother (Särkkä; ukf.jl:862-925).
 
         Backward pass re-runs augmented trivial-weight sigma points per
         step, exactly like the reference (which always uses the default
         `sigmapoints(m̃, P̃)` there).
-
-        ``fused=True`` runs the forward pass through the whole-scan
-        pallas kernel (:meth:`forward_trajectory_fused`) — ~5× fewer
-        per-step launches on TPU; the kernel computes in f32 and carries
-        a custom_jvp that re-routes through the XLA scan under
-        differentiation (ops/pallas/adroute.py).
         """
         from ..trajectory import forward_trajectory
         from ..utils.solutions import KalmanSmoothingSolution
 
         p = self.p if p is None else p
-        if sol is None and fused:
-            sol = self.forward_trajectory_fused(u, y)
         if sol is None:
             sol = forward_trajectory(self, u, y, p, **kwargs)
         x, xt, R, Rt = sol.x, sol.xt, sol.R, sol.Rt
@@ -203,33 +195,16 @@ class UnscentedKalmanFilter(AbstractKalmanFilter):
             return (xT_k, RT_k), (xT_k, RT_k)
 
         inps = (xt[:-1], Rt[:-1], sol.u[:-1], tvec[:-1])
-        (_, _), (xT_rest, RT_rest) = jax.lax.scan(
-            backstep, (xt[-1], Rt[-1]), inps, reverse=True
-        )
+        # pinned: at default precision the sigma-point contractions may run
+        # in reduced precision on a GPU, which moved xT by ~2e-4 of the
+        # state scale at T=5e4 (H100)
+        with jax.default_matmul_precision("highest"):
+            (_, _), (xT_rest, RT_rest) = jax.lax.scan(
+                backstep, (xt[-1], Rt[-1]), inps, reverse=True
+            )
         xT = jnp.concatenate([xT_rest, xt[-1:]], axis=0)
         RT = jnp.concatenate([RT_rest, Rt[-1:]], axis=0)
         return KalmanSmoothingSolution(sol=sol, xT=xT, RT=RT)
-
-    def loglik_fused(self, ys, us=None):
-        """Whole-trajectory log-likelihood as ONE pallas kernel
-        (ops/pallas/ukf_scan.py): ~4.5 us/step vs ~22 us for the XLA scan
-        at nx=4 on v5e (the scan body is fusion-launch-bound).  Falls back
-        to the XLA scan off-TPU or outside the kernel's scope (augmented
-        forms, custom UT callbacks, callable noise)."""
-        from ..ops.pallas.ukf_scan import ukf_loglik_fused
-
-        return ukf_loglik_fused(self, ys, us)
-
-    def forward_trajectory_fused(self, us, ys):
-        """Full :class:`KalmanFilteringSolution` from the same whole-scan
-        pallas kernel as :meth:`loglik_fused` — per-step x/xt/R/Rt/e/S/K
-        packed into lane-blocked solution planes in VMEM, so
-        `forward_trajectory` users get the fused-kernel speed too
-        (round-2 review: the fused path returned ll only).  Falls back
-        to the XLA scan off-TPU or outside the kernel's scope."""
-        from ..ops.pallas.ukf_scan import ukf_forward_trajectory_fused
-
-        return ukf_forward_trajectory_fused(self, us, ys)
 
     # -- simulation hooks (ukf.jl:435-446) ------------------------------
     def sample_initial(self, key, p=None, noise=True):

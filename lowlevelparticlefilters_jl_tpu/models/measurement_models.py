@@ -1,6 +1,6 @@
 """Decoupled measurement models — the sensor-fusion layer.
 
-TPU-native re-design of /root/reference/src/measurement_model.jl.  Any
+A JAX re-design of the reference's src/measurement_model.jl.  Any
 Kalman-type filter can `correct` with any measurement model
 (`kf.correct(state, u, y, mm=model)`), enabling mixed-rate multi-sensor
 fusion exactly like the reference (verified there in

@@ -1,6 +1,6 @@
 """Unscented-transform weights and sigma points.
 
-TPU-native re-design of /root/reference/src/ukf.jl:1-226 (UT parameter
+A JAX re-design of the reference's src/ukf.jl:1-226 (UT parameter
 schemes `WikiParams`/`MerweParams`/`TrivialParams`, `UKFWeights`,
 `sigmapoints!`).  Sigma points are a stacked ``[2L+1, L]`` array (center
 point first, matching the reference's convention) so propagation is one

@@ -1,6 +1,6 @@
 """Constraint handling for Gaussian state estimates.
 
-TPU-native re-design of /root/reference/src/kalman.jl:181-358:
+A JAX re-design of the reference's src/kalman.jl:181-358:
 rank-1 equality projection onto an active bound (`project_bound`,
 kalman.jl:181-215) and truncated-Gaussian moment matching
 (`truncated_moment_match`, kalman.jl:243-294; scalar moments

@@ -28,8 +28,8 @@ def symmetrize_psd(X: jax.Array, eps: float = 1e-12) -> jax.Array:
 # Dimension up to which factorizations/solves use fully unrolled
 # elementwise formulas instead of lax.linalg kernels.  State/measurement
 # dimensions in this domain are typically 1-10; the batched LAPACK-style
-# kernels XLA emits for such tiny matrices are loop-heavy on TPU, while
-# the unrolled forms are pure VPU code that fuses into the surrounding
+# kernels XLA emits for such tiny matrices are loop-heavy, while the
+# unrolled forms are elementwise code that fuses into the surrounding
 # scan body (the StaticArrays analogue, cf. docs/benchstatic.md).
 _UNROLL_N = 8
 
@@ -73,7 +73,7 @@ def chol_lower(S: jax.Array) -> jax.Array:
     Under jit we cannot raise like the reference does on factorization
     failure (filtering.jl:113); failure produces NaNs that propagate into
     the solution's validity (see `KalmanFilteringSolution.ok`).  Small
-    static dimensions use the unrolled VPU form.
+    static dimensions use the unrolled elementwise form.
     """
     S = symmetrize(S)
     if S.shape[-1] <= _UNROLL_N:
@@ -117,7 +117,7 @@ def _lu_solve_unrolled(M: jax.Array, B: jax.Array) -> jax.Array:
 
 def solve_nopivot(M: jax.Array, B: jax.Array) -> jax.Array:
     """General linear solve M X = B with the small-dimension unrolled
-    no-pivot fast path (TPU: batched tiny `jnp.linalg.solve` lowers to a
+    no-pivot fast path (batched tiny `jnp.linalg.solve` lowers to a
     sequential pivoted LU with dynamic slicing — pathological inside
     `associative_scan` combines).  Falls back to `jnp.linalg.solve`
     above the unroll bound.  Caller must guarantee pivot safety (see

@@ -1,10 +1,10 @@
 """Stable log-sum-exp weight normalization.
 
-TPU-native replacement for the reference's SIMD weight kernel
+A JAX replacement for the reference's SIMD weight kernel
 (/root/reference/src/utils.jl:18-63, `logsumexp!`/`expnormalize!`).  The
 reference mutates the log-weight vector in place with SLEEFPirates SIMD exp;
 here the same math is expressed functionally over a weight array so XLA fuses
-the max/sub/exp/sum chain into a single VPU pass, and `psum`-style variants in
+the max/sub/exp/sum chain into a single pass, and `psum`-style variants in
 ``parallel/`` extend it across a device mesh.
 """
 from __future__ import annotations

@@ -7,7 +7,7 @@ The single most load-bearing configuration idiom of the reference
 - a constant array,
 - a *time-stacked* array with the time index in the **leading** axis
   (``M[k]`` is the matrix at step ``k``; the reference stacks on the last
-  axis, filtering.jl:18 — we use the leading axis for TPU-friendly layout
+  axis, filtering.jl:18 — we use the leading axis for a scan-friendly layout
   and `lax.dynamic_index_in_dim`), or
 - a callable ``M(x, u, p, t) -> array``.
 
@@ -125,7 +125,7 @@ def is_constant_mat(M: MatLike, base_ndim: int = 2) -> bool:
 
 # ---------------------------------------------------------------------------
 # IndexingMatrix — sparse 0/1 selector (reference src/indexing_matrix.jl).
-# On TPU a tiny selector matmul is free after fusion, so the "fast multiply"
+# A tiny selector matmul is free after fusion, so the "fast multiply"
 # specializations (indexing_matrix.jl:51-101) reduce to gather/scatter.
 # ---------------------------------------------------------------------------
 

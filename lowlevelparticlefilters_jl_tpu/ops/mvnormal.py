@@ -1,6 +1,6 @@
 """Minimal multivariate-normal distribution protocol.
 
-TPU-native analogue of the reference's `SimpleMvNormal`
+A JAX analogue of the reference's `SimpleMvNormal`
 (/root/reference/src/utils.jl:241-273) and the `extended_logpdf` bridge that
 the Distributions.jl extension overloads (utils.jl:252,
 ext/LowLevelParticleFiltersDistributionsExt.jl:80).

@@ -1,13 +1,10 @@
 """Particle resampling — systematic / stratified / residual / multinomial.
 
-TPU-native re-design of /root/reference/src/resample.jl.  The reference walks
-the CDF with a sequential two-pointer loop (resample.jl:17-36); on TPU the
+A JAX re-design of the reference's src/resample.jl.  The reference walks
+the CDF with a sequential two-pointer loop (resample.jl:17-36); here the
 same algorithm is a parallel prefix-sum (`jnp.cumsum`, which XLA lowers to a
-log-depth scan) followed by a vectorized `searchsorted` binary search — both
-map onto the VPU with no sequential dependence on N.  The production fused
-kernel for the N >= 32768 regime is ``ops/pallas/resample_v2.py`` (index +
-gather in one pallas call, ~224 µs at N=1e5 on v5e, bitwise exact), with
-``ops/pallas/resample_route.py`` extending admission past its VMEM envelope.
+log-depth scan) followed by a closed-form slot computation or a vectorized
+`searchsorted` — no sequential dependence on N.
 
 All resamplers are shape-static and `lax.cond`/`scan`-compatible: they take a
 PRNG key and return an int32 index vector ``j`` of length M.
@@ -28,20 +25,18 @@ def _systematic_slots(we: jax.Array, key: jax.Array, M: int) -> jax.Array:
     With query points ``u_k = (r + k)/M * total`` (resample.jl:26-28),
     particle i's offspring occupy output slots ``[K_{i-1}, K_i)`` where
     ``K_i = ceil(cdf_i * M / total - r)``.  Everything downstream
-    (indices, fused gather) derives from K with *no binary search* —
-    `jnp.searchsorted` lowers to an O(log N) gather loop that costs
-    ~10 ms at N=1e5 on TPU, while this closed form is a cumsum + a
-    scatter (~1 µs).  Ties at CDF boundaries may resolve one index off
-    from a literal searchsorted (fp rounding); both are valid samplers.
+    (indices, gather) derives from K with *no binary search* — the
+    closed form is a cumsum + a scatter or a count matmul.  Ties at CDF
+    boundaries may resolve one index off from a literal searchsorted (fp
+    rounding); both are valid samplers.
 
     K is forced non-decreasing with a running max: XLA's log-depth f32
     cumsum is NOT monotone under rounding (adjacent prefixes use
     different tree groupings), and with heavily skewed weights at
-    N >= 1e4 the raw K dips by 1 in places.  Every downstream
-    formulation (count matmul, scatter histogram, the pallas
-    routing/window kernels) assumes sorted K — a dip silently breaks
-    their mutual bitwise equality (measured: ~10 mismatched slots at
-    N=1e5, we ~ U^20).  The cummax repairs the artifact; the
+    N >= 1e4 the raw K dips by 1 in places.  Both downstream
+    formulations (count matmul, scatter histogram) assume sorted K — a
+    dip silently breaks their mutual bitwise equality (~10 mismatched
+    slots at N=1e5, we ~ U^20).  The cummax repairs the artifact; the
     exact-arithmetic sampler is unchanged.
     """
     bins = jnp.cumsum(we, axis=-1)
@@ -57,9 +52,7 @@ _L = 128  # lane-width block for the two-level matmul formulation
 
 def _systematic_j_exact(we: jax.Array, key: jax.Array, M: int) -> jax.Array:
     """Counting-sort via scatter histogram + prefix sum (exact for any
-    weight profile / any M; ~880 us at N=1e5 — TPU scatters serialize at
-    ~8.8 ns per update element, so this is the any-M fallback, not the
-    hot path)."""
+    weight profile / any M)."""
     N = we.shape[-1]
     K = _systematic_slots(we, key, M)
     hist = jnp.zeros((M + 1,), jnp.int32).at[K].add(1)
@@ -68,7 +61,7 @@ def _systematic_j_exact(we: jax.Array, key: jax.Array, M: int) -> jax.Array:
 
 
 def _systematic_j_matmul(we: jax.Array, key: jax.Array) -> jax.Array:
-    """Systematic-resampling indices as one MXU matmul (M == N).
+    """Systematic-resampling indices as one matmul (M == N).
 
     ``j_k = #{i : K_i <= k}`` decomposes over slot blocks ``k = b*L + l``:
 
@@ -76,10 +69,9 @@ def _systematic_j_matmul(we: jax.Array, key: jax.Array) -> jax.Array:
 
     with ``q_i = K_i // L``, ``r_i = K_i mod L``.  The second term is a
     [NB, N] × [N, L] matmul of a block one-hot against remainder step
-    functions — dense MXU work with NO skew assumption, no scatter, no
-    searchsorted, no sort.  Honest v5e cost at N=1e5 (T-slope): ~355 us
-    vs ~880 us for the scatter histogram and 2.2+ ms for searchsorted.
-    Exactness: 0/1 and small-count values are exact in bf16.
+    functions — dense matmul work with NO skew assumption, no scatter, no
+    searchsorted, no sort.  Exactness: 0/1 and small-count values are
+    exact in bf16 with f32 accumulation.
     """
     N = we.shape[-1]
     NB = (N + _L - 1) // _L
@@ -100,7 +92,7 @@ def _systematic_j_matmul(we: jax.Array, key: jax.Array) -> jax.Array:
 
 
 def resample_systematic(we: jax.Array, key: jax.Array, M: int | None = None) -> jax.Array:
-    """Systematic resampling (resample.jl:17-36), TPU-native.
+    """Systematic resampling (resample.jl:17-36).
 
     M == N (the filtering hot path) uses the two-level matmul formulation
     (:func:`_systematic_j_matmul`); other M fall back to the counting
@@ -110,84 +102,17 @@ def resample_systematic(we: jax.Array, key: jax.Array, M: int | None = None) -> 
     N = we.shape[-1]
     M = N if M is None else M
     # The matmul path materializes an [N, N/128] one-hot (O(N^2/128)
-    # bytes) — a win up to a few 1e5 particles; beyond that the linear
-    # scatter path is the lesser evil.
+    # bytes), so it is capped at 2^18 particles; beyond that the linear
+    # scatter path runs.
     if M == N and N <= (1 << 18):
         return _systematic_j_matmul(we, key)
     return _systematic_j_exact(we, key, M)
 
 
-_KERNEL_MIN_N = 1 << 15  # below this the XLA path wins (kernel pads to 8192)
-_KERNEL_VMEM_BUDGET = 12 << 20  # bytes of VMEM for the kernel's scratch
-
-
-def _kernel_fits(N: int, nx: int) -> bool:
-    """Perf + VMEM admission for the fused kernel.
-
-    Perf: the kernel's gather work scales LINEARLY in nx (9 masked MXU
-    dots per dimension per window) while XLA's row gather amortizes row
-    width, so the kernel only wins for narrow states.  v5e T-slope
-    measurements (2026-08, this repo): nx=2 → 2.7×/2.1× faster
-    (N=1e5/32768), nx=4 → 1.5×, nx=6 → 0.96×, nx=8 → 0.84×/0.51×.
-    Crossover ≈ nx 5; admit nx ≤ 4.
-
-    VMEM: persistent scratch ``(nx+1)×Rpad×128`` f32 (acc + inner) +
-    output blocks + streamed inputs + ~2.5 MB of mask intermediates must
-    stay under the scoped budget — a Mosaic overflow is a hard compile
-    error, not a fallback (bounds N ≲ 3e5 at nx=4)."""
-    if nx > 4:
-        return False
-    from .pallas.resample_v2 import CHUNK, W
-
-    Rout = -(-N // 128)
-    Rout_pad = -(-Rout // 128) * 128
-    Rpad = Rout_pad + ((W + 127) // 128 + 1) * 128
-    scratch = (nx + 1) * Rpad * 128 * 4
-    outblk = (nx + 1) * Rout_pad * 128 * 4
-    inblk = 2 * nx * 8 * CHUNK * 4
-    return scratch + outblk + inblk + (5 << 19) <= _KERNEL_VMEM_BUDGET
-
-
 def resample_systematic_gather(x: jax.Array, we: jax.Array, key: jax.Array) -> jax.Array:
-    """Fused systematic resample + particle gather: ``x[resample(we)]``.
-
-    On TPU at N >= 32768 (nx <= 4) this runs as ONE pallas kernel —
-    preferred: the monotone log-shift routing kernel
-    (ops/pallas/resample_route.py, ~150 µs at N=1e5/nx=2 on v5e with
-    skewed weights) — vs ~610 µs for the XLA formulation (index matmul
-    ~260-360 µs + row gather ~240-330 µs, which serializes); the
-    windowed-MXU kernel (ops/pallas/resample_v2.py, ~360 µs) remains as
-    the fallback where routing exceeds its VMEM envelope.  Everywhere
-    else: matmul-formulated indices (:func:`_systematic_j_matmul`) +
-    one row take.  ALL paths are exact and bitwise IDENTICAL to
-    ``x[resample_systematic(we)]`` — same K slot boundaries, and the
-    kernels select (never approximate) particle values.
-    """
-    N = we.shape[-1]
-    # The kernels compute in f32 (v2's bf16 hi/mid/lo splits cover a
-    # 24-bit mantissa); f64 particles under jax x64 would silently lose
-    # precision, so the bitwise contract gates admission on f32.
-    if x.ndim == 2 and x.dtype == jnp.float32 and N >= _KERNEL_MIN_N:
-        from .pallas.noise import _on_tpu
-
-        # PREFERRED: the monotone log-shift routing kernel — after the
-        # r4 packed-stage + dynamic-trip-count rework it beats the
-        # windowed-MXU v2 kernel at every measured admitted config
-        # (v5e, skewed weights: N=1e5 nx=2 150 vs 361 us, nx=4 317 vs
-        # 366; N=32768 nx=2 32 vs 177, nx=4 14 vs 47).  Cost is linear
-        # in nx (payload planes), so nx <= 4 stays the admission edge
-        # vs the XLA matmul-index + row-take fallback.
-        from .pallas.resample_route import (
-            fused_systematic_gather_route, route_kernel_fits)
-
-        if (_on_tpu() and x.shape[1] <= 4
-                and route_kernel_fits(N, x.shape[1])):
-            return fused_systematic_gather_route(x, we, key)
-        if _on_tpu() and _kernel_fits(N, x.shape[1]):
-            from .pallas.resample_v2 import fused_systematic_gather
-
-            out, _ = fused_systematic_gather(x, we, key)
-            return out.astype(x.dtype)
+    """Systematic resample + particle gather: ``x[resample(we)]``
+    (matmul-formulated indices, :func:`_systematic_j_matmul`, and one
+    row take)."""
     j = resample_systematic(we, key)
     return jnp.take(x, j, axis=0)
 

@@ -1,10 +1,10 @@
 """Banks of filters: vmapped + mesh-sharded batch execution.
 
 The reference runs one filter at a time; its speed story is StaticArrays on
-small matrices (docs/benchstatic.md).  Small dense ops are MXU-hostile, so
-the TPU-native throughput play is *batching*: `vmap` over a bank of B
-filters/trajectories turns the per-step small matmuls into [B, n, n]
-batched contractions that XLA tiles onto the MXU, and the bank axis shards
+small matrices (docs/benchstatic.md).  Small dense ops leave an
+accelerator idle, so the throughput play is *batching*: `vmap` over a bank
+of B filters/trajectories turns the per-step small matmuls into [B, n, n]
+batched contractions, and the bank axis shards
 over a device mesh with zero communication (embarrassingly parallel, like
 the reference's `metropolis_threaded` chains, src/smoothing.jl:335-347).
 

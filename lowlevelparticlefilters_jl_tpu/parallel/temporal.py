@@ -2,12 +2,12 @@
 
 The reference's `forward_trajectory` is an inherently sequential O(T) loop
 (/root/reference/src/filtering.jl:293-315) — the only option on a CPU.  On
-TPU the linear-Gaussian recursion is *associative* (Särkkä &
+an accelerator the linear-Gaussian recursion is *associative* (Särkkä &
 García-Fernández, "Temporal Parallelization of Bayesian Smoothers",
 IEEE TAC 2021, arXiv:1905.13002; see PAPERS.md): filtering and smoothing
 both factor into elements combined by an associative operator, so
 `jax.lax.associative_scan` evaluates the whole pass in O(log T) depth with
-all the per-step 5-matrix algebra batched onto the MXU.
+all the per-step 5-matrix algebra batched across time.
 
 This is an *acceleration layer*: `parallel_forward_trajectory` /
 `parallel_rts_smooth` reproduce the sequential results to numerical
@@ -35,6 +35,7 @@ import jax.numpy as jnp
 from ..ops.linalg import symmetrize, chol_lower, rdiv_chol, solve_nopivot
 from ..ops.matrices import resolve_mat
 from ..ops.mvnormal import mvnormal_logpdf
+from ..models.affine import callback_affine_in_x as _callback_affine_in_x
 from ..utils.solutions import KalmanFilteringSolution, KalmanSmoothingSolution
 
 
@@ -120,21 +121,20 @@ def _filter_elements(F, c, H, Q, R, y, m0, P0):
 # Lane-major ("structure-of-arrays") combine layer.
 #
 # `associative_scan` over [T, nx, nx] elements makes every combine a batched
-# tiny-matrix dot_general: on TPU each 4x4 matrix pads to an (8, 128) MXU
-# tile, a ~32x bytes amplification that measured ~27 ms (filter) + ~33 ms
-# (smoother) per pass at T=5e4/nx=4 on v5e — 20x off the bandwidth roofline.
-# Storing elements as [n, m, T] (time on the LANE axis) makes every combine
-# matmul an UNROLLED set of scalar-row FMAs over natively-tiled [T] vectors:
-# no padding, no relayout, pure VPU throughput.
+# tiny-matrix dot_general, whose trailing dims are tiny and pad on a tiled
+# memory layout.  Storing elements per entry as [T] vectors (time on the
+# minor axis) makes every combine matmul an UNROLLED set of scalar FMAs
+# over dense [T] vectors: elementwise work that XLA fuses.  Which layout
+# is faster on a given device is a measurement, not yet made for every
+# backend; both stay (the array form serves nx > 8).
 # ---------------------------------------------------------------------------
 
 
 def _m_split(M):
     """[T, n, m] array -> tuple-of-tuples of [T] leaves (one per entry).
     A first attempt stored SoA matrices as stacked [n, m, T] arrays, but
-    every combine matmul then ends in an n*m-way `jnp.stack` — concats
-    materialize on TPU and a T=5e4/nx=4 pass measured 3x SLOWER than
-    the AoS baseline.  Per-entry pytree leaves keep every combine op
+    every combine matmul then ends in an n*m-way `jnp.stack`, and the
+    concats materialize.  Per-entry pytree leaves keep every combine op
     purely elementwise, which XLA fuses into a handful of kernels per
     scan level."""
     n, m = M.shape[1], M.shape[2]
@@ -294,8 +294,8 @@ def _filter_combine(e1, e2):
     nx = A1.shape[-1]
     eye = jnp.eye(nx, dtype=A1.dtype)
     # D = M⁻¹ with M = I + C1 J2: C1, J2 PSD ⇒ eig(M) ≥ 1 ⇒ the
-    # unrolled no-pivot solve is safe (and ~10× cheaper than batched
-    # tiny LU inside the associative_scan combine on TPU)
+    # unrolled no-pivot solve is safe (and avoids a batched tiny
+    # pivoted LU inside the associative_scan combine)
     M = eye + C1 @ J2
     A2_D = solve_nopivot(M.mT, A2.mT).mT     # A2 D
     G = solve_nopivot(M, A1)                 # Gᵀ = A1ᵀ Dᵀ
@@ -315,10 +315,8 @@ def _filter_combine(e1, e2):
 # ---------------------------------------------------------------------------
 # Whole-pipeline plane ("SoA") execution.
 #
-# On TPU a [T, 4, 4] f32 array is tiled (8, 128) on its trailing dims —
-# a 64× physical amplification of every element/post-hoc intermediate,
-# which dominated the parallel-KF T-slope (~0.2 µs/step against a ~5 ns
-# roofline).  The element construction, both associative scans, and the
+# A [T, 4, 4] f32 array with tiny trailing dims pads on a tiled memory
+# layout.  The element construction, both associative scans, and the
 # post-hoc innovation algebra therefore all run on [T]-leaf planes; the
 # [T, nx, nx] containers are joined only at the solution boundary, where
 # XLA dead-codes whatever the caller does not use.
@@ -417,25 +415,14 @@ def _smooth_elements_p(Fp, cp, Qp, xtp, Ctp, T):
 
 
 def _scan_filter_p(elems_p):
-    """Inclusive filter-combine scan on plane elements: the fused Mosaic
-    kernel on TPU/f32/nx≤4, the XLA entrywise-pytree associative_scan
-    elsewhere.  Returns (xt planes, Rt planes)."""
-    from ..ops.pallas.assoc_scan import filter_scan_p, scan_supported
-
-    nx = len(elems_p[1])
-    if scan_supported(nx, jnp.result_type(elems_p[1][0])):
-        return filter_scan_p(elems_p)
+    """Inclusive filter-combine scan on plane elements (the entrywise-
+    pytree associative_scan).  Returns (xt planes, Rt planes)."""
     _, b_, C_, _, _ = jax.lax.associative_scan(_filter_combine_soa,
                                                elems_p)
     return b_, C_
 
 
 def _scan_smooth_p(elems_p):
-    from ..ops.pallas.assoc_scan import smooth_scan_p, scan_supported
-
-    nx = len(elems_p[1])
-    if scan_supported(nx, jnp.result_type(elems_p[1][0])):
-        return smooth_scan_p(elems_p)
     _, g, L = jax.lax.associative_scan(
         lambda a, b: _smooth_combine_soa(b, a), elems_p, reverse=True)
     return g, L
@@ -655,25 +642,6 @@ def parallel_rts_smooth(kf, u, y, p=None, sol: Optional[KalmanFilteringSolution]
 # ---------------------------------------------------------------------------
 
 
-def _callback_affine_in_x(fn, nx, u0, p, t0) -> bool:
-    """Static (trace-time) affinity check of a dynamics/measurement
-    callback in its state argument — the pf_scan.py jaxpr walk reused
-    for the iterated parallel smoothers.  When BOTH callbacks are affine
-    the Jacobian/SLR linearization is exact and independent of the
-    nominal trajectory, so all refinement iterations collapse to one
-    pass (and the UKF smoother's sigma-point machinery can be skipped
-    entirely: the unscented SLR of an affine fn is (Jac, fn(0), Om=0)).
-    Fails closed on anything the walker cannot prove affine."""
-    from ..ops.pallas.pf_scan import _jaxpr_affine_in_x
-
-    try:
-        closed = jax.make_jaxpr(lambda x: fn(x, u0, p, t0))(
-            jnp.zeros((nx,), jnp.float32))
-    except Exception:
-        return False
-    return _jaxpr_affine_in_x(closed.jaxpr)
-
-
 def parallel_iekf_smooth(ekf, u, y, p=None, *, iters: int = 8):
     """O(log T)-depth iterated extended Kalman smoother.
 
@@ -759,8 +727,8 @@ def parallel_iekf_smooth(ekf, u, y, p=None, *, iters: int = 8):
 
     # iters total Gauss-Newton linearizations: iters-1 refinement passes
     # in a lax.scan (the pass body compiles ONCE however many iters —
-    # Python-unrolling two pytree-combine passes blew the XLA compile
-    # past 12 min on v5e), the last pass fused with the output assembly.
+    # Python-unrolling two pytree-combine passes made the XLA compile
+    # take many minutes), the last pass fused with the output assembly.
     if iters > 1:
         xbar, _ = jax.lax.scan(one_iter, xbar0, None, length=iters - 1)
     else:
@@ -796,7 +764,7 @@ def _slr_many(fns, m, P, W, params):
     the parallel smoothers needs dynamics AND measurement — building
     them twice doubled the per-pass chol/sigma cost).  Uses the
     library's unrolled `chol_solve` — batched `cho_solve` lowers to
-    tiny pivoted triangular solves on TPU."""
+    tiny pivoted triangular solves."""
     from ..models.sigmapoints import sigmapoints, ut_mean, ut_cov, ut_cross_cov
     from ..ops.linalg import chol_lower as _chol, chol_solve
 
@@ -826,9 +794,8 @@ def _slr_linearize_p(fns, out_dims, m_p, P_p, W, u_seq, tvec, p, T):
     Only the user-callback evaluation crosses into stacked
     [T, 2nx+1, ·] arrays (callbacks take [nx] vectors); every moment,
     factorization and regression solve stays plane arithmetic — the
-    batched [T, nx, nx] UT intermediates of the vmapped form tile to
-    (8, 128) on TPU (64× physical traffic) and dominated the nonlinear
-    iterated smoother's per-iteration cost.
+    batched [T, nx, nx] UT intermediates of the vmapped form have tiny
+    trailing dims that pad on a tiled memory layout.
     """
     nx = len(m_p)
     NP = 2 * nx + 1
@@ -913,8 +880,7 @@ def parallel_ukf_smooth(ukf, u, y, p=None, *, iters: int = 8):
     R = _resolve_seq(mm.R2, m0, u_seq, tvec, p, Ts)
 
     # initial nominal trajectory: the prior mean replicated.  A noiseless
-    # rollout seed would be a SEQUENTIAL T-step lax.scan — measured
-    # ~0.5 s of the 0.75 s walltime at T=50k on v5e, defeating the
+    # rollout seed would be a SEQUENTIAL T-step lax.scan, defeating the
     # O(log T) design; the constant seed costs one extra SLR iteration
     # at worst (each iteration is itself O(log T)), and on affine models
     # the SLR is exact regardless of the seed trajectory.

@@ -1,6 +1,6 @@
 """Parameter estimation: PEM residuals, ML/MAP covariance tuning, PMMH.
 
-TPU-native re-design of the reference's estimation stack:
+A JAX re-design of the reference's estimation stack:
 - `prediction_errors` (src/smoothing.jl:176-217) — whitened residuals
   incl. the log-determinant residual, as one differentiable `lax.scan`,
 - `log_likelihood_fun` / `metropolis` / `metropolis_threaded`

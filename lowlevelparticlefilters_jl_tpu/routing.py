@@ -1,29 +1,25 @@
-"""Unified production dispatch for the reference-parity verbs.
+"""Dispatch for the reference-parity verbs.
 
-The reference's ``forward_trajectory`` IS its fastest execution
-(/root/reference/src/filtering.jl:282-327).  Here the headline speeds live
-in specialist kernels (``ops/pallas/pf_scan.py``, ``ukf_scan.py``) and the
-temporal-parallel plane pipelines (``parallel/temporal.py``); this module
-routes the plain verbs — ``loglik``, ``forward_trajectory``, ``smooth``,
-``mean_trajectory`` — onto those paths automatically under their static
-admission gates, so a migrating user gets the fast execution without
-importing anything pallas-shaped (VERDICT r3 ask #2).
+The reference's ``forward_trajectory`` is a sequential loop
+(the reference's src/filtering.jl:282-327).  Here the plain verbs —
+``loglik``, ``forward_trajectory``, ``smooth`` — run either the
+sequential ``lax.scan`` recursion or the temporal-parallel associative
+scan (``parallel/temporal.py``); this module picks between them so a
+migrating user reaches both through the same verbs.
 
 Every verb takes ``method=``:
 
-- ``"auto"`` (default): fastest supported path.  Fused/parallel paths are
-  auto-selected on TPU only — the XLA-CPU backend compiles the unrolled
-  plane graphs in minutes at nx ≥ 4 (docs/troubleshooting.md) and runs
-  interpret-mode pallas, so CPU defaults to the sequential scan.
+- ``"auto"`` (default): the sequential scan.  The crossover length at
+  which the O(log T)-depth parallel path wins has not been measured yet,
+  so ``auto`` does not choose it.
 - ``"sequential"``: the plain `lax.scan` recursion, always.
-- ``"fused"``: force the whole-scan Mosaic kernel path (falls back with a
-  route record when the filter is out of kernel scope).
-- ``"parallel"``: force the temporal-parallel associative-scan path.
+- ``"parallel"``: the temporal-parallel associative-scan path, for the
+  filters it admits (plain KF; affine UKF/EKF via an exact plain-KF
+  reduction; UKF/EKF smoothers via the iterated parallel smoothers).
+  Filters out of its scope take the sequential scan.
 
-Differentiation needs no special casing: the fused kernels carry
-custom_jvps that re-route through the XLA scan (ops/pallas/adroute.py),
-and the assoc-scan kernels likewise (ops/pallas/assoc_scan.py), so every
-route is `jax.grad`-able.
+Both paths are plain JAX, so every route is `jax.grad`-able and
+`vmap`-able.
 
 Routing decisions are static (trace-time): ``last_route()`` reports which
 path the most recent verb took, and is asserted in tests/test_routing.py.
@@ -35,18 +31,11 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-# verb -> path string ("xla_scan" | "pallas_fused_scan" |
-# "temporal_parallel" | ...), recorded at trace time
+# verb -> path string ("xla_scan" | "temporal_parallel"), recorded at
+# trace time
 _LAST: dict = {}
 
-#: auto-routing thresholds: minimum trajectory length for the temporal-
-#: parallel path to be worth its O(T log T) work and element setup.  The
-#: assoc-scan path's per-step marginal cost is ~2 ns vs ~0.5-1 µs for the
-#: sequential scan on v5e, so the crossover is early; 256 keeps tiny
-#: interactive calls on the cheap-to-compile scan.
-T_PARALLEL = 256
-
-METHODS = ("auto", "sequential", "fused", "parallel")
+METHODS = ("auto", "sequential", "parallel")
 
 
 def _record(verb: str, path: str) -> None:
@@ -61,45 +50,13 @@ def last_route(verb: str = "last") -> Optional[str]:
 
 
 def _check_method(method: str) -> None:
+    if method == "fused":
+        raise ValueError(
+            "method='fused' was removed together with the whole-scan "
+            "kernels; use method='auto' (sequential scan) or "
+            "method='parallel'")
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
-
-
-def _on_tpu() -> bool:
-    from .ops.pallas.noise import _on_tpu as f
-
-    return f()
-
-
-def _under_batch_trace(*vals) -> bool:
-    """True when any array leaf of the given values/pytrees is being
-    traced by ``jax.vmap``.  The fused whole-scan kernels batch as
-    grid-sequential kernel INSTANCES — a vmapped bank of 1024
-    trajectories would run 1024 sequential Mosaic scans (measured 30x
-    SLOWER than the vmapped XLA scan on v5e) — so batch traces fall back
-    to the sequential scan, which vmaps into the bank-shaped XLA program
-    users expect.  Whole FILTER pytrees are inspected too: the canonical
-    ``log_likelihood_fun`` parameter sweep vmaps over filter matrices
-    (smoothing.jl:266-282), not data (VERDICT r4 #5).
-    ``vmap(jit(loglik))`` is invisible at this level (the inner jaxpr is
-    traced unbatched); put the vmap inside the jit, or use the bank APIs
-    (`kf_bank_loglik`, `ukf_bank_loglik`) which are faster than either."""
-    try:
-        from jax._src.interpreters.batching import BatchTracer
-    except Exception:  # pragma: no cover - fallback for older jax
-        from jax.interpreters.batching import BatchTracer
-
-    leaves = jax.tree_util.tree_leaves(vals)
-    return any(isinstance(v, BatchTracer) for v in leaves)
-
-
-def seed_from_key(key) -> jax.Array:
-    """Derive the fused PF kernel's int32 seed from a PRNG key (typed or
-    raw uint32) — deterministic, full-entropy multiply-xor fold
-    (bit-cast, so all 32 bits of the fold survive)."""
-    bits = jax.random.bits(key, (2,), jnp.uint32)
-    folded = bits[0] * jnp.uint32(0x9E3779B9) ^ bits[1]
-    return jax.lax.bitcast_convert_type(folded, jnp.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -143,21 +100,11 @@ def _kf_parallel_ok(kf, T: int, *, need_arrays: bool) -> bool:
     return T >= 2
 
 
-def _want_parallel(method: str, T: int) -> bool:
-    if method == "parallel":
-        return True
-    return method == "auto" and _on_tpu() and T >= T_PARALLEL
-
-
-def _want_fused(method: str) -> bool:
-    return method == "fused" or (method == "auto" and _on_tpu())
-
-
 def _affine_equiv_kf(f, u, y):
     """Exact plain-KF reduction of an affine UKF/EKF for the temporal-
     parallel path: constant-Jacobian concrete probes
-    (ops/pallas/ukf_scan.py::_const_affine_kf_params) give (A, C); the
-    affine callback offsets become drive sequences fed through B = I and
+    (models/affine.py::const_affine_kf_params) give (A, C); the affine
+    callback offsets become drive sequences fed through B = I and
     pre-subtracted from y.  The UT/EKF recursions coincide with the
     plain KF exactly on affine models (ukf.jl:468-541 is exact there),
     so ``parallel_forward_trajectory`` on the reduction reproduces the
@@ -166,20 +113,16 @@ def _affine_equiv_kf(f, u, y):
     from .filters.ekf import ExtendedKalmanFilter
     from .filters.kalman import KalmanFilter
     from .filters.ukf import UnscentedKalmanFilter
-    from .ops.pallas.ukf_scan import (
-        _affine_ekf_equivalent, _const_affine_kf_params, _default_hooks,
-        _ekf_supported, _supported)
+    from .models.affine import (
+        affine_ekf_equivalent, const_affine_kf_params, ekf_reducible)
 
     if type(f) is UnscentedKalmanFilter:
-        if not _supported(f, f.measurement_model) or not _default_hooks(
-                f, f.measurement_model):
-            return None
-        ekf = _affine_ekf_equivalent(f, f.measurement_model, f.nx)
+        ekf = affine_ekf_equivalent(f, f.measurement_model, f.nx)
         if ekf is None:
             return None
     elif type(f) is ExtendedKalmanFilter:
         ekf = f
-        if not _ekf_supported(ekf, ekf.measurement_model):
+        if not ekf_reducible(ekf, ekf.measurement_model):
             return None
     else:
         return None
@@ -189,7 +132,7 @@ def _affine_equiv_kf(f, u, y):
     nx, ny = ekf.nx, ekf.ny
     if nx > 8 or ny > 8:
         return None
-    ak = _const_affine_kf_params(ekf, mm, nx)
+    ak = const_affine_kf_params(ekf, mm, nx)
     if ak is None:
         return None
     A, C = ak
@@ -222,87 +165,29 @@ def _affine_equiv_kf(f, u, y):
 # ---------------------------------------------------------------------------
 
 
-def route_pf_loglik(pf, u, y, p, key, state0, method: str):
-    """Fused whole-scan kernel for the bootstrap-PF log-likelihood.
-    Returns None when the sequential scan should run."""
-    _check_method(method)
-    if method in ("sequential", "parallel") or not _want_fused(method) \
-            or _under_batch_trace(pf, u, y, key, p):
-        _record("loglik", "xla_scan")
-        return None
-    from .ops.pallas.pf_scan import pf_loglik_fused, pf_scan_supported
-
-    if (
-        state0 is not None
-        or key is None
-        or (p is not None and p is not getattr(pf, "p", None))
-        or not pf_scan_supported(pf)
-    ):
-        _record("loglik", "xla_scan")
-        return None
-    ll, _ = pf_loglik_fused(pf, u, y, seed_from_key(key))
-    # recorded AFTER the call: off-TPU the fused entry falls back through
-    # the sequential verb, whose inner record must not win
-    _record("loglik", "pallas_fused_scan")
-    return ll
-
-
 def route_kalman_loglik(f, u, y, p, method: str, kwargs: dict):
-    """loglik routing for KF/UKF/EKF: temporal-parallel for long linear
-    trajectories, else the fused whole-scan kernel.  Returns None for the
-    sequential scan."""
+    """loglik routing for KF/UKF/EKF under ``method="parallel"``: the
+    temporal-parallel filter for plain KFs and for affine UKF/EKFs
+    (exact plain-KF reduction).  Returns None for the sequential scan."""
     _check_method(method)
-    if kwargs or method == "sequential" or _under_batch_trace(f, u, y, p):
+    if kwargs or method != "parallel" or p is not None:
         _record("loglik", "xla_scan")
         return None
-    from .filters.ekf import ExtendedKalmanFilter
-    from .filters.ukf import UnscentedKalmanFilter
-
     T = jnp.shape(y)[0]
-    if _is_plain_kf(f) and p is None:
-        if _want_parallel(method, T) and _kf_parallel_ok(
-            f, T, need_arrays=True
-        ):
+    if _is_plain_kf(f):
+        if _kf_parallel_ok(f, T, need_arrays=True):
             from .parallel.temporal import parallel_forward_trajectory
 
             _record("loglik", "temporal_parallel")
             return parallel_forward_trajectory(f, u, y, p).ll
-        if _want_fused(method) and f._fused_delegate() is not None:
-            ll = f.loglik_fused(y, u)
-            _record("loglik", "pallas_fused_scan")
-            return ll
-        _record("loglik", "xla_scan")
-        return None
-    if p is None:
-        # affine-detected UKF/EKF on long trajectories: reduce to the
-        # exactly-equivalent plain KF and take the O(log T) temporal-
-        # parallel path (~200x the sequential whole-scan kernel on v5e)
-        if _want_parallel(method, T) and isinstance(
-                u, (jax.Array, type(None))):
-            eq = _affine_equiv_kf(f, u, y)
-            if eq is not None:
-                from .parallel.temporal import parallel_forward_trajectory
+    elif isinstance(u, (jax.Array, type(None))):
+        eq = _affine_equiv_kf(f, u, y)
+        if eq is not None:
+            from .parallel.temporal import parallel_forward_trajectory
 
-                kf_eq, cs, y_eff = eq
-                _record("loglik", "temporal_parallel")
-                return parallel_forward_trajectory(kf_eq, cs, y_eff).ll
-        if _want_fused(method):
-            if type(f) is UnscentedKalmanFilter:
-                from .ops.pallas.ukf_scan import (
-                    _supported, ukf_loglik_fused)
-
-                if _supported(f, f.measurement_model):
-                    ll = ukf_loglik_fused(f, jnp.asarray(y), u)
-                    _record("loglik", "pallas_fused_scan")
-                    return ll
-            elif type(f) is ExtendedKalmanFilter:
-                from .ops.pallas.ukf_scan import (
-                    _ekf_supported, ekf_loglik_fused)
-
-                if _ekf_supported(f, f.measurement_model):
-                    ll = ekf_loglik_fused(f, jnp.asarray(y), u)
-                    _record("loglik", "pallas_fused_scan")
-                    return ll
+            kf_eq, cs, y_eff = eq
+            _record("loglik", "temporal_parallel")
+            return parallel_forward_trajectory(kf_eq, cs, y_eff).ll
     _record("loglik", "xla_scan")
     return None
 
@@ -314,72 +199,38 @@ def route_kalman_loglik(f, u, y, p, method: str, kwargs: dict):
 
 def route_forward_trajectory(f, u, y, p, method: str, has_callbacks: bool,
                              kwargs: dict):
-    """Solution-returning verb: temporal-parallel for long plain-KF
-    trajectories (callable matrices admitted — flagged via sol.ok), else
-    the fused whole-scan solution kernels.  None -> sequential scan."""
+    """Solution-returning verb under ``method="parallel"``: the temporal-
+    parallel filter for plain KFs (callable matrices admitted — flagged
+    via sol.ok) and affine UKF/EKFs.  None -> sequential scan."""
     _check_method(method)
-    if method == "sequential" or has_callbacks \
-            or kwargs.get("mm") is not None or _under_batch_trace(f, u, y, p):
+    if method != "parallel" or has_callbacks or p is not None \
+            or kwargs.get("mm") is not None \
+            or not isinstance(u, (jax.Array, type(None))):
         _record("forward_trajectory", "xla_scan")
         return None
-    from .filters.ekf import ExtendedKalmanFilter
-    from .filters.ukf import UnscentedKalmanFilter
-
     T = jnp.shape(y)[0]
-    if _is_plain_kf(f) and p is None and isinstance(
-        u, (jax.Array, type(None))
-    ):
-        if _want_parallel(method, T) and _kf_parallel_ok(
-            f, T, need_arrays=False
-        ):
+    if _is_plain_kf(f):
+        if _kf_parallel_ok(f, T, need_arrays=False):
             from .parallel.temporal import parallel_forward_trajectory
 
             _record("forward_trajectory", "temporal_parallel")
             return parallel_forward_trajectory(f, u, y, p)
-        if _want_fused(method) and f._fused_delegate() is not None:
-            sol = f.forward_trajectory_fused(u, y)
-            _record("forward_trajectory", "pallas_fused_scan")
+    else:
+        # affine-detected UKF/EKF: exact plain-KF reduction; the container
+        # keeps the CALLER's u/y — innovations e = y-Cx-d match the
+        # sequential UKF/EKF convention by construction
+        eq = _affine_equiv_kf(f, u, y)
+        if eq is not None:
+            from .parallel.temporal import parallel_forward_trajectory
+            from .trajectory import _as_u_seq
+
+            kf_eq, cs, y_eff = eq
+            sol = parallel_forward_trajectory(kf_eq, cs, y_eff)
+            y32 = jnp.asarray(y, jnp.float32)
+            sol = sol.replace(
+                u=_as_u_seq(u, y32.shape[0], y32.dtype), y=y32)
+            _record("forward_trajectory", "temporal_parallel")
             return sol
-        _record("forward_trajectory", "xla_scan")
-        return None
-    if p is None:
-        # affine-detected UKF/EKF: exact plain-KF reduction through the
-        # O(log T) temporal-parallel solution (see route_kalman_loglik);
-        # the container keeps the CALLER's u/y — innovations e = y-Cx-d
-        # match the sequential UKF/EKF convention by construction
-        if _want_parallel(method, T) and isinstance(
-                u, (jax.Array, type(None))):
-            eq = _affine_equiv_kf(f, u, y)
-            if eq is not None:
-                from .parallel.temporal import parallel_forward_trajectory
-                from .trajectory import _as_u_seq
-
-                kf_eq, cs, y_eff = eq
-                sol = parallel_forward_trajectory(kf_eq, cs, y_eff)
-                y32 = jnp.asarray(y, jnp.float32)
-                sol = sol.replace(
-                    u=_as_u_seq(u, y32.shape[0], y32.dtype), y=y32)
-                _record("forward_trajectory", "temporal_parallel")
-                return sol
-        if _want_fused(method):
-            if type(f) is UnscentedKalmanFilter:
-                from .ops.pallas.ukf_scan import (
-                    _supported, ukf_forward_trajectory_fused)
-
-                if _supported(f, f.measurement_model):
-                    sol = ukf_forward_trajectory_fused(f, u,
-                                                       jnp.asarray(y))
-                    _record("forward_trajectory", "pallas_fused_scan")
-                    return sol
-            elif type(f) is ExtendedKalmanFilter:
-                from .ops.pallas.ukf_scan import (
-                    _ekf_supported, ekf_forward_trajectory_fused)
-
-                if _ekf_supported(f, f.measurement_model):
-                    sol = ekf_forward_trajectory_fused(f, u,
-                                                       jnp.asarray(y))
-                    _record("forward_trajectory", "pallas_fused_scan")
-                    return sol
     _record("forward_trajectory", "xla_scan")
     return None
 
@@ -390,21 +241,18 @@ def route_forward_trajectory(f, u, y, p, method: str, has_callbacks: bool,
 
 
 def route_smooth(f, u, y, p, method: str, kwargs: dict):
-    """Temporal-parallel smoothers for long trajectories: plain-KF RTS via
-    the assoc-scan plane pipeline; UKF/EKF via the iterated sigma-point /
-    extended parallel smoothers (exact in one pass on affine models).
-    None -> sequential backward scan."""
+    """Temporal-parallel smoothers under ``method="parallel"``: plain-KF
+    RTS via the associative-scan plane pipeline; UKF/EKF via the iterated
+    sigma-point / extended parallel smoothers (exact in one pass on
+    affine models).  None -> sequential backward scan."""
     _check_method(method)
-    if method == "sequential" or kwargs or _under_batch_trace(f, u, y, p):
+    if method != "parallel" or kwargs:
         _record("smooth", "xla_scan")
         return None
     from .filters.ekf import ExtendedKalmanFilter
     from .filters.ukf import UnscentedKalmanFilter
 
     T = jnp.shape(y)[0]
-    if not _want_parallel(method, T):
-        _record("smooth", "xla_scan")
-        return None
     if _is_plain_kf(f) and _kf_parallel_ok(f, T, need_arrays=False):
         from .parallel.temporal import parallel_rts_smooth
 
@@ -423,28 +271,3 @@ def route_smooth(f, u, y, p, method: str, kwargs: dict):
         return parallel_iekf_smooth(f, u, y, p)
     _record("smooth", "xla_scan")
     return None
-
-
-# ---------------------------------------------------------------------------
-# mean_trajectory routing (PF state-tracking verb, filtering.jl:393-440)
-# ---------------------------------------------------------------------------
-
-
-def route_pf_mean_trajectory(pf, u, y, p, key, method: str):
-    """Fused in-VMEM mean accumulation (pf_mean_fused) for supported
-    bootstrap PFs; None -> run forward_trajectory + weighted mean."""
-    _check_method(method)
-    if method in ("sequential", "parallel") or not _want_fused(method) \
-            or _under_batch_trace(pf, u, y, key, p):
-        _record("mean_trajectory", "xla_scan")
-        return None
-    from .ops.pallas.pf_scan import pf_mean_fused, pf_scan_supported
-
-    if key is None or (
-        p is not None and p is not getattr(pf, "p", None)
-    ) or not pf_scan_supported(pf):
-        _record("mean_trajectory", "xla_scan")
-        return None
-    means, _, _ = pf_mean_fused(pf, u, y, seed_from_key(key))
-    _record("mean_trajectory", "pallas_fused_scan")
-    return means

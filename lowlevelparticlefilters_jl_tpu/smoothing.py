@@ -1,6 +1,6 @@
 """Smoothers: RTS, modified Bryson–Frazier, FFBS particle smoother.
 
-TPU-native re-design of /root/reference/src/smoothing.jl.  The backward
+A JAX re-design of the reference's src/smoothing.jl.  The backward
 recursions are reversed `lax.scan`s; the FFBS smoother evaluates the whole
 (M × N) backward-weight matrix per step with `vmap` instead of the
 reference's nested loops (smoothing.jl:129-141).
@@ -23,10 +23,10 @@ def smooth(f, u, y, p=None, M: int | None = None, key=None,
     """RTS smoothing for Kalman-type filters; FFBS for particle filters
     (smoothing.jl:10-33, 104-143).
 
-    ``method="auto"`` routes long KF/UKF/EKF trajectories on TPU to the
-    O(log T) temporal-parallel smoothers (parallel/temporal.py — exact in
-    one pass on linear/affine models, iterated SLR otherwise);
-    ``"sequential"`` forces the classic backward scan.
+    ``method="parallel"`` routes KF/UKF/EKF trajectories to the O(log T)
+    temporal-parallel smoothers (parallel/temporal.py — exact in one pass
+    on linear/affine models, iterated SLR otherwise); ``"auto"`` and
+    ``"sequential"`` run the classic backward scan.
     """
     if M is None and key is None:
         from .routing import route_smooth
@@ -142,8 +142,7 @@ def smooth_mbf(sol: KalmanFilteringSolution, kf, p=None):
 # ---------------------------------------------------------------------------
 
 
-def ffbs_smooth(pf, sol, M: int, key: jax.Array, u=None, y=None, p=None,
-                backend: str = "auto"):
+def ffbs_smooth(pf, sol, M: int, key: jax.Array, u=None, y=None, p=None):
     """Forward-filtering backward-simulation particle smoother.
 
     The reference's O(T·M·N) double loop (smoothing.jl:129-141) becomes a
@@ -155,17 +154,8 @@ def ffbs_smooth(pf, sol, M: int, key: jax.Array, u=None, y=None, p=None,
         ‖xb_m − xp_n‖²_{Σ⁻¹} = c_m + c_n − 2·(Xb Σ⁻¹ Xpᵀ)_{mn}
 
     so the (M, N) weight matrix is ONE [M,nx]×[nx,N] matmul plus rank-1
-    broadcasts — the whole smoother rides the MXU instead of
-    materializing an [M, N, nx] difference tensor.  Non-Gaussian densities
-    fall back to the broadcast form.
-
-    ``backend``: 'auto' runs the whole backward pass as ONE pallas kernel
-    on TPU for Gaussian additive noise and supported sizes
-    (ops/pallas/ffbs_kernel.py — the [M, N] intermediates stay in VMEM;
-    ~4-10x the XLA scan), falling back to the XLA scan otherwise.  Note
-    the kernel draws its categoricals from the hardware PRNG (seeded from
-    ``key``), so results differ draw-for-draw from ``backend='xla'``
-    while being distributionally identical.
+    broadcasts instead of an [M, N, nx] difference tensor.  Non-Gaussian
+    densities fall back to the broadcast form.
 
     Returns ``(xb, ll)`` with ``xb`` of shape [T, M, nx].
     """
@@ -189,43 +179,20 @@ def ffbs_smooth(pf, sol, M: int, key: jax.Array, u=None, y=None, p=None,
     j = resample(sol.we[-1], k0, M, strategy=getattr(pf, "resampling_strategy", "systematic"))
     xb_T = xf[-1][j]  # [M, nx]
 
-    if backend in ("auto", "pallas") and gaussian:
-        from .ops.pallas.ffbs_kernel import (
-            ffbs_backward_pallas, ffbs_pallas_supported)
-        from .ops.pallas.noise import _on_tpu
-
-        ok = _on_tpu() and ffbs_pallas_supported(df, M, N, nx)
-        if backend == "pallas" and not ok:
-            raise ValueError(
-                "ffbs backend='pallas' requires a TPU backend, Gaussian "
-                f"dynamics noise, nx <= 8, 8 <= M <= 4096 and "
-                f"128 <= N <= 2^18 (got M={M}, N={N}, nx={nx}, "
-                f"tpu={_on_tpu()})")
-        if ok:
-            tvec = jnp.arange(T - 1) * Ts
-            xpred = jax.vmap(
-                jax.vmap(lambda xn, ut, tt: f(xn, ut, p, tt),
-                         in_axes=(0, None, None)),
-                in_axes=(0, 0, 0),
-            )(xf[:-1], u[:-1], tvec)
-            seed = jax.random.randint(key, (), 0, jnp.int32(2**31 - 1))
-            xb = ffbs_backward_pallas(
-                xpred, wf[:-1], xf[:-1], xb_T, df.chol(), mu, seed)
-            return xb, sol.ll
-
     def backstep(carry, inp):
         xb_next, key = carry  # xb_next: [M, nx]
         xf_t, wf_t, u_t, t_t = inp
         # mean of x_{t+1} given each forward particle: [N, nx]
         xpred = jax.vmap(lambda xn: f(xn, u_t, p, t_t))(xf_t)
         if gaussian:
-            # quadratic-form expansion → MXU matmul (up to the shared
+            # quadratic-form expansion → one matmul (up to the shared
             # normalization constant, irrelevant to the categorical draw).
             # The form is shift-invariant, so both sides are centred on the
             # predicted-particle mean to avoid catastrophic cancellation of
             # the three terms when the cloud sits far from the origin, and
             # the big [M,nx]x[nx,N] contraction runs at precision=HIGHEST
-            # (the v5e MXU defaults to bf16 passes).
+            # (a default-precision f32 matmul may run in reduced precision
+            # on an accelerator).
             hi = jax.lax.Precision.HIGHEST
             shift = jnp.mean(xpred, axis=0)
             db = xb_next - mu - shift

@@ -1,6 +1,6 @@
 """Batch filtering along a trajectory — the sequential hot loop.
 
-TPU-native re-design of /root/reference/src/filtering.jl:282-327
+A JAX re-design of the reference's src/filtering.jl:282-327
 (`forward_trajectory`): the per-step Python loop becomes one `lax.scan`
 whose carry is the filter state and whose stacked outputs are the solution
 fields.  The whole function is jit-able and `jax.grad`-able end to end
@@ -65,11 +65,10 @@ def forward_trajectory(
     :class:`KalmanFilteringSolution`, particle filters a
     :class:`ParticleFilteringSolution` (via their own implementation).
 
-    ``method="auto"`` routes plain-KF/UKF/EKF calls (without per-step
-    callbacks) to the fastest supported execution on TPU — the
-    temporal-parallel plane pipeline for long linear trajectories or the
-    fused whole-scan solution kernels (routing.py); ``"sequential"``
-    forces the `lax.scan` recursion.
+    ``method="auto"`` and ``"sequential"`` run the `lax.scan` recursion;
+    ``"parallel"`` routes plain-KF and affine UKF/EKF calls (without
+    per-step callbacks) to the O(log T) temporal-parallel filter
+    (routing.py).
     """
     if not hasattr(f, "forward_trajectory"):
         from .routing import route_forward_trajectory
@@ -139,9 +138,9 @@ def kalman_forward_trajectory(
     """`forward_trajectory` for Kalman-type filters (filtering.jl:282-327).
 
     Step order matches the reference exactly: save prediction → correct →
-    save filtered → predict.  ``unroll`` unrolls the scan body (TPU: a
-    small-state sequential pass is dispatch-bound; unroll=8-32 amortizes
-    the loop bookkeeping at the cost of compile time).
+    save filtered → predict.  ``unroll`` unrolls the scan body (a
+    small-state sequential pass is bound by per-step overhead; unrolling
+    amortizes the loop bookkeeping at the cost of compile time).
     """
     y = jnp.asarray(y)
     T = y.shape[0]
@@ -199,12 +198,10 @@ def kalman_forward_trajectory(
 def loglik(f, u, y, p=None, unroll: int = 1, method: str = "auto", **kwargs):
     """Total log-likelihood of the data (smoothing.jl:227-236).
 
-    ``method="auto"`` routes to the fastest supported execution on TPU
-    (routing.py): the fused whole-scan Mosaic kernels for supported
-    PF/KF/UKF/EKF configurations, the temporal-parallel plane pipeline
-    for long linear-KF trajectories; the XLA scan otherwise and under
-    ``method="sequential"``.  Every route differentiates (the kernels
-    carry custom_jvps that fall back to the XLA scan under jax.grad).
+    ``method="auto"`` and ``"sequential"`` run the `lax.scan`
+    recursion; ``"parallel"`` routes plain-KF and affine UKF/EKF calls to
+    the O(log T) temporal-parallel filter (routing.py).  Every route
+    differentiates.
     """
     if hasattr(f, "loglik"):
         from .filters.particle import _ParticleCommon
@@ -413,18 +410,14 @@ def mean_trajectory(x, we=None, y=None, *, p=None, key=None,
     - array form ``mean_trajectory(x [T, N, nx], we [T, N])`` — reduce a
       stored particle solution;
     - filter form ``mean_trajectory(pf, u, y, key=...)`` — run the filter
-      and return the [T, nx] filtered means.  On TPU a supported
-      bootstrap PF runs the fused whole-scan kernel (``pf_mean_fused``:
-      the cloud never leaves VMEM, only the [T, nx] means are written);
-      otherwise ``forward_trajectory`` + weighted mean.
+      (``forward_trajectory``) and return the [T, nx] filtered means.
     """
     if hasattr(x, "forward_trajectory"):
         f, u = x, we
-        from .routing import route_pf_mean_trajectory
+        from .routing import _check_method, _record
 
-        routed = route_pf_mean_trajectory(f, u, y, p, key, method)
-        if routed is not None:
-            return routed
+        _check_method(method)
+        _record("mean_trajectory", "xla_scan")
         sol = f.forward_trajectory(u, y, p, key=key)
         return weighted_mean(sol.x, sol.we)
     return weighted_mean(x, we)

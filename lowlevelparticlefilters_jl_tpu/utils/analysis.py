@@ -1,6 +1,6 @@
 """Linear-systems analysis of filters.
 
-TPU-native re-design of the reference's ControlSystemsBase extension
+A JAX re-design of the reference's ControlSystemsBase extension
 (/root/reference/ext/LowLevelParticleFiltersControlSystemsBaseExt.jl):
 linearization of any filter (`jax.jacfwd` replaces the extension's
 ForwardDiff-based `linearize`, :29-41), observability/controllability

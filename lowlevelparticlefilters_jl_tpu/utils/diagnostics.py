@@ -1,6 +1,6 @@
 """Statistical filter-validation numerics.
 
-TPU-native re-design of the diagnostics behind the reference's
+A JAX re-design of the diagnostics behind the reference's
 `validationplot` (/root/reference/ext/LowLevelParticleFiltersDistributionsExt.jl:95-238)
 and the weighted KDE (/root/reference/src/plotting.jl:9-47), split into
 pure numerics (this module, jit-friendly, array-in/array-out) and the

@@ -2,16 +2,14 @@
 
 The reference has no formal tracing subsystem (SURVEY.md §5) — its
 equivalents are interactive particle debug plots and allocation-count
-tests.  The TPU-native instrumentation story:
+tests.  The instrumentation here:
 
 - :func:`trace` — context manager around `jax.profiler.trace` producing a
   TensorBoard/Perfetto trace of compiled execution,
 - :func:`annotate` — named `TraceAnnotation` regions that show up inside
   device traces (wrap e.g. one `forward_trajectory` call),
-- :func:`step_timer` — host-side wall-clock timing of a jitted callable
-  with correct device synchronization (median over repeats; a single
-  `block_until_ready` measurement on a remote-attached device is
-  unreliable),
+- :func:`step_timer` — host-side wall-clock timing of a jitted callable,
+  synchronized with `block_until_ready` (median over repeats),
 - the per-step callback hooks on `forward_trajectory`
   (pre/post correct/predict, trajectory.py) remain the in-graph
   observability mechanism, mirroring the reference's callback protocol
@@ -48,6 +46,6 @@ def step_timer(fn: Callable, *args, repeats: int = 3, warmup: bool = True):
     ts = []
     for _ in range(repeats):
         t0 = time.perf_counter()
-        jax.device_get(fn(*args))
+        jax.block_until_ready(fn(*args))
         ts.append(time.perf_counter() - t0)
     return sorted(ts)[len(ts) // 2]

@@ -1,7 +1,7 @@
 """Typed solution containers (reference src/solutions.jl).
 
 All containers are pytrees whose per-step histories are *stacked arrays*
-(time in the leading axis) — the natural output of `lax.scan` and the TPU
+(time in the leading axis) — the natural output of `lax.scan` and the JAX
 analogue of the reference's vectors-of-SVectors
 (solutions.jl:49-66, 225-239, 334-345).
 """
@@ -31,9 +31,8 @@ class KalmanFilteringSolution:
       the jit-compatible replacement for the reference's mid-trajectory
       exception + ``debug=true`` partial solutions (filtering.jl:316-325).
     - ``route`` : static provenance string — which execution path produced
-      this solution ("xla_scan" | "pallas_fused_scan" |
-      "temporal_parallel"), stamped by the top-level verbs so a saved
-      solution records how it was computed (VERDICT r4 #9).
+      this solution ("xla_scan" | "temporal_parallel"), stamped by the
+      top-level verbs so a saved solution records how it was computed.
     """
 
     u: Any = field()

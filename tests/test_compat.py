@@ -116,7 +116,7 @@ def test_deprecated_typo_aliases():
 
 
 def test_apf_keyword_forwarding():
-    """ADVICE-r2 regression: compat verbs must forward p/t as KEYWORDS.
+    """Regression: compat verbs must forward p/t as KEYWORDS.
 
     AuxiliaryParticleFilter.update takes ``y1`` in the position where
     other filters take ``p`` — positional forwarding silently bound the

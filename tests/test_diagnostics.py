@@ -251,7 +251,7 @@ class TestPlotting:
 
 
 class TestConstructorChecksAndDiagnosis:
-    """Round-2 closure of VERDICT missing #5: eager constructor warnings
+    """Eager constructor warnings
     (kalman.jl:75-86) + a jit-free failure-localization helper matching
     the reference's descriptive Cholesky errors (filtering.jl:112-121)."""
 

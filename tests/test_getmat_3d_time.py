@@ -64,7 +64,7 @@ class TestGetMat3D:
     def test_filter_with_stacked_A_any_Ts(self, Ts):
         """forward_trajectory with a stacked A and Ts != 1 equals the same
         filter with the equivalent callable A — the silent wrong-answer
-        path flagged in round 1 (VERDICT missing #2)."""
+        path."""
         T = 20
         A_stack = jnp.stack([_A(k) for k in range(T)])
         kf_stack = self._kf(A_stack, Ts)

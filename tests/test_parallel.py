@@ -1,4 +1,4 @@
-"""Tests for TPU-fast resampling formulations and the mesh-sharded layer.
+"""Tests for the parallel resampling formulations and the mesh-sharded layer.
 
 Mirrors the reference's resampler-proportion tests (runtests.jl:108-143)
 plus cross-implementation equivalence, and validates the sharded particle
@@ -290,7 +290,7 @@ class TestShardedEnKF:
 
 
 class TestParallelIEKS:
-    """O(log T) iterated extended smoother (round-2 VERDICT item #5b)."""
+    """O(log T) iterated extended smoother."""
 
     def _lin(self):
         A = jnp.array([[1.0, 0.1], [0.0, 0.97]])
@@ -368,7 +368,7 @@ class TestParallelIEKS:
     def test_state_dependent_matrix_trips_ok_flag(self):
         """parallel_forward_trajectory assumes state-independent matrices;
         a state-dependent callable must surface as sol.ok == False
-        (round-2 fix of VERDICT weak #6), not silently wrong numbers."""
+        not silently wrong numbers."""
         kf_bad = llpf.KalmanFilter(
             lambda x, u, p, t: jnp.eye(2) * (0.9 + 0.01 * x[0]),
             jnp.array([[0.1], [0.0]]), jnp.eye(2), 0,
@@ -391,7 +391,7 @@ class TestParallelIEKS:
 
 
 class TestDistributedResample:
-    """O(N/devices)-traffic systematic resample (round-2 VERDICT item #7):
+    """O(N/devices)-traffic systematic resample:
     the neighbor-exchange path must agree with the gather-to-replicated
     path on the same PRNG stream, and fall back gracefully on skew."""
 
@@ -478,8 +478,8 @@ class TestDistributedResample:
 class TestLaneMajorCombines:
     """The lane-major (SoA) associative-scan combines must reproduce the
     batched-matrix (AoS) reference combines exactly — the AoS versions
-    are kept as the readable oracle (temporal.py: on TPU the batched
-    4x4 dot_generals pad to MXU tiles, ~20x off roofline)."""
+    are kept as the readable oracle (temporal.py: the batched 4x4
+    dot_generals have tiny trailing dims that pad on a tiled layout)."""
 
     def test_filter_combine_equivalence(self):
         from lowlevelparticlefilters_jl_tpu.parallel import temporal as tp

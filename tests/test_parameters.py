@@ -2,7 +2,7 @@
 /root/reference/test/test_parameters.jl: the SciML-style parameter object
 stored on the filter flows into every dynamics/measurement call, and a
 per-call override replaces it consistently through simulate /
-forward_trajectory / loglik — plus the TPU-native extra: `p` is a pytree
+forward_trajectory / loglik — plus the JAX extra: `p` is a pytree
 leaf you can differentiate and vmap over.
 """
 import jax
@@ -77,7 +77,7 @@ def test_grad_wrt_p(filt):
 
 def test_vmap_over_p(filt):
     """A bank of parameter hypotheses evaluated in one batched pass —
-    the TPU-native replacement for parameter sweeps."""
+    the batched replacement for parameter sweeps."""
     us = jax.random.normal(jax.random.PRNGKey(5), (15, 2))
     _, u1, y1 = llpf.simulate(filt, us, jax.random.PRNGKey(6), p=0.5)
     ps = jnp.linspace(-1.0, 1.5, 11)

@@ -1,21 +1,16 @@
-"""Unified production dispatch (routing.py, VERDICT r3 ask #2).
+"""Dispatch of the reference-parity verbs (routing.py).
 
-The reference-parity verbs — loglik / forward_trajectory / smooth /
-mean_trajectory — must auto-route to the fused-kernel and temporal-
-parallel fast paths under their admission gates, with a ``method=``
-override and the selected path observable via ``llpf.last_route()``.
-On CPU, ``method="auto"`` stays on the sequential scan (parallel plane
-graphs are a compile cliff there; pallas is interpret-only), so these
-tests (a) force paths with ``method=`` and compare values against the
-sequential oracle, and (b) monkeypatch the routing TPU probe to assert
-the auto decisions a TPU user gets.
+loglik / forward_trajectory / smooth / mean_trajectory take ``method=``:
+``"auto"`` and ``"sequential"`` run the `lax.scan` recursion,
+``"parallel"`` the temporal-parallel path under its admission gates, and
+the removed ``"fused"`` raises.  The selected path is observable via
+``llpf.last_route()``; values are compared against the sequential oracle.
 """
 import jax
 import jax.numpy as jnp
 import pytest
 
 import lowlevelparticlefilters_jl_tpu as llpf
-from lowlevelparticlefilters_jl_tpu import routing
 
 A = jnp.array([[0.97, -0.09], [0.09, 0.97]], jnp.float32)
 B = jnp.array([[0.1], [0.0]], jnp.float32)
@@ -30,7 +25,7 @@ def kf():
 
 @pytest.fixture()
 def data(kf):
-    T = 300  # >= routing.T_PARALLEL
+    T = 300
     u = 0.3 * jnp.ones((T, 1))
     _, u, y = llpf.simulate(kf, u, jax.random.PRNGKey(0))
     return u, y
@@ -84,6 +79,9 @@ def test_ukf_smooth_parallel_matches(data):
 
 
 def test_pf_loglik_fused_route(data):
+    """method='fused' is gone with the whole-scan kernels: it raises
+    instead of silently running the scan; 'auto' and 'sequential' run
+    the same XLA scan."""
     u, y = data
     pf = llpf.ParticleFilter(
         N=4096,
@@ -95,12 +93,13 @@ def test_pf_loglik_fused_route(data):
     ll_seq = llpf.loglik(pf, u, y, key=jax.random.PRNGKey(1),
                          method="sequential")
     assert llpf.last_route("loglik") == "xla_scan"
-    ll_fused = llpf.loglik(pf, u, y, key=jax.random.PRNGKey(1),
-                           method="fused")
-    assert llpf.last_route("loglik") == "pallas_fused_scan"
-    # both are MC estimates of the same exact KF likelihood
+    ll_auto = llpf.loglik(pf, u, y, key=jax.random.PRNGKey(1))
+    assert llpf.last_route("loglik") == "xla_scan"
+    assert float(ll_auto) == float(ll_seq)
+    # an MC estimate of the exact KF likelihood
     assert abs(float(ll_seq - kf_ll)) < 0.01 * abs(float(kf_ll))
-    assert abs(float(ll_fused - kf_ll)) < 0.01 * abs(float(kf_ll))
+    with pytest.raises(ValueError, match="fused"):
+        llpf.loglik(pf, u, y, key=jax.random.PRNGKey(1), method="fused")
 
 
 def test_pf_unsupported_falls_back(data):
@@ -110,8 +109,8 @@ def test_pf_unsupported_falls_back(data):
         dynamics=lambda x, u_, p, t: A @ x + B @ u_,
         measurement=lambda x, u_, p, t: x,
         dynamics_density=R1, measurement_density=R2, initial_density=R1,
-        resampling_strategy="residual")  # outside pf_scan scope
-    ll = llpf.loglik(pf, u, y, key=jax.random.PRNGKey(1), method="fused")
+        resampling_strategy="residual")
+    ll = llpf.loglik(pf, u, y, key=jax.random.PRNGKey(1))
     assert llpf.last_route("loglik") == "xla_scan"
     assert jnp.isfinite(ll)
 
@@ -131,25 +130,45 @@ def test_mean_trajectory_filter_form(data):
     assert jnp.allclose(m, m2, atol=1e-5)
 
 
-def test_auto_decisions_on_tpu(kf, data, monkeypatch):
-    """What a TPU user's method='auto' selects (TPU probe patched; the
-    fused entry points themselves still fall back off-TPU, so only the
-    routing decision is asserted, values covered by the tests above)."""
+@pytest.mark.parametrize("method,route", [
+    ("auto", "xla_scan"), ("sequential", "xla_scan"),
+    ("parallel", "temporal_parallel")])
+def test_auto_decisions(kf, data, method, route):
+    """What each method selects on every backend: 'auto' is the
+    sequential scan (no crossover is measured yet), 'parallel' the
+    temporal-parallel path; PF verbs always run the scan."""
     u, y = data
-    monkeypatch.setattr(routing, "_on_tpu", lambda: True)
-    llpf.loglik(kf, u, y)  # T=300 >= T_PARALLEL, arrays only
-    assert llpf.last_route("loglik") == "temporal_parallel"
-    llpf.loglik(kf, u[:100], y[:100])  # short: fused delegate
-    assert llpf.last_route("loglik") == "pallas_fused_scan"
+    llpf.loglik(kf, u, y, method=method)
+    assert llpf.last_route("loglik") == route
+    llpf.forward_trajectory(kf, u, y, method=method)
+    assert llpf.last_route("forward_trajectory") == route
+    llpf.smooth(kf, u, y, method=method)
+    assert llpf.last_route("smooth") == route
     pf = llpf.ParticleFilter(
         N=512,
         dynamics=lambda x, u_, p, t: A @ x + B @ u_,
         measurement=lambda x, u_, p, t: x,
         dynamics_density=R1, measurement_density=R2, initial_density=R1)
-    llpf.loglik(pf, u, y, key=jax.random.PRNGKey(1))
-    assert llpf.last_route("loglik") == "pallas_fused_scan"
-    llpf.smooth(kf, u, y)
-    assert llpf.last_route("smooth") == "temporal_parallel"
+    llpf.loglik(pf, u, y, key=jax.random.PRNGKey(1), method=method)
+    assert llpf.last_route("loglik") == "xla_scan"
+
+
+@pytest.mark.parametrize("verb", ["loglik", "forward_trajectory", "smooth",
+                                  "mean_trajectory"])
+def test_fused_method_raises(kf, data, verb):
+    u, y = data
+    if verb == "mean_trajectory":
+        pf = llpf.ParticleFilter(
+            N=64,
+            dynamics=lambda x, u_, p, t: A @ x + B @ u_,
+            measurement=lambda x, u_, p, t: x,
+            dynamics_density=R1, measurement_density=R2, initial_density=R1)
+        call = lambda: llpf.mean_trajectory(pf, u, y, key=jax.random.PRNGKey(0),
+                                            method="fused")
+    else:
+        call = lambda: getattr(llpf, verb)(kf, u, y, method="fused")
+    with pytest.raises(ValueError, match="fused"):
+        call()
 
 
 def test_callbacks_stay_sequential(kf, data):
@@ -167,14 +186,10 @@ def test_callbacks_stay_sequential(kf, data):
     assert bool(sol.ok.all())
 
 
-def test_vmap_falls_back_to_sequential(kf, data, monkeypatch):
-    """vmap(loglik) must NOT route into the fused whole-scan kernels:
-    pallas batches them as grid-sequential kernel instances (measured
-    30x slower than the vmapped XLA scan at bank=1024 on v5e).  The
-    batch-trace guard routes every vmapped verb to the sequential scan
-    — even with method='fused'/'parallel' forced and the TPU probe
-    monkeypatched on."""
-    monkeypatch.setattr(routing, "_on_tpu", lambda: True)
+def test_vmap_falls_back_to_sequential(kf, data):
+    """vmap over the verbs needs no guard now that every path is plain
+    JAX: 'auto' vmaps the sequential scan and 'parallel' vmaps the
+    temporal-parallel path, each matching its per-instance values."""
     u, y = data
     ysb = jnp.stack([y, y + 0.1])
     usb = jnp.stack([u, u])
@@ -190,22 +205,22 @@ def test_vmap_falls_back_to_sequential(kf, data, monkeypatch):
         dynamics=lambda x, u_, p, t: A @ x + B @ u_,
         measurement=lambda x, u_, p, t: x,
         dynamics_density=R1, measurement_density=R2, initial_density=R1)
-    _ = jax.vmap(lambda u_, y_, k: llpf.loglik(pf, u_, y_, key=k,
-                                               method="fused"))(
+    plls = jax.vmap(lambda u_, y_, k: llpf.loglik(pf, u_, y_, key=k))(
         usb, ysb, jax.random.split(jax.random.PRNGKey(0), 2))
     assert llpf.last_route("loglik") == "xla_scan"
+    assert bool(jnp.all(jnp.isfinite(plls)))
 
-    _ = jax.vmap(lambda u_, y_: llpf.smooth(kf, u_, y_, method="parallel"
-                                            ).xT)(usb, ysb)
-    assert llpf.last_route("smooth") == "xla_scan"
+    xT = jax.vmap(lambda u_, y_: llpf.smooth(kf, u_, y_, method="parallel"
+                                             ).xT)(usb, ysb)
+    assert llpf.last_route("smooth") == "temporal_parallel"
+    want_xT = llpf.smooth(kf, usb[1], ysb[1], method="sequential").xT
+    assert jnp.allclose(xT[1], want_xT, atol=1e-4)
 
 
-def test_vmap_over_filter_params_falls_back(kf, data, monkeypatch):
+def test_vmap_over_filter_params_falls_back(kf, data):
     """The log_likelihood_fun sweep pattern (smoothing.jl:266-282) vmaps
-    over FILTER matrices, not data — the BatchTracers live in the filter
-    pytree.  The guard must scan the filter's leaves too (VERDICT r4 #5)
-    and route to the sequential scan, matching per-instance values."""
-    monkeypatch.setattr(routing, "_on_tpu", lambda: True)
+    over FILTER matrices, not data; every path batches over them and
+    matches the per-instance values."""
     u, y = data
     scales = jnp.array([0.5, 1.0, 2.0])
 
@@ -217,20 +232,21 @@ def test_vmap_over_filter_params_falls_back(kf, data, monkeypatch):
                     method="sequential") for s in scales])
     assert jnp.allclose(lls, want, rtol=1e-5)
 
-    # forward_trajectory and smooth take the same guard path
-    _ = jax.vmap(
-        lambda s: llpf.forward_trajectory(kf.replace(R1=s * R1), u, y).ll
-    )(scales)
-    assert llpf.last_route("forward_trajectory") == "xla_scan"
+    lls_p = jax.vmap(
+        lambda s: llpf.loglik(kf.replace(R1=s * R1), u, y,
+                              method="parallel"))(scales)
+    assert llpf.last_route("loglik") == "temporal_parallel"
+    assert jnp.allclose(lls_p, want, rtol=1e-4)
+
     _ = jax.vmap(
         lambda s: llpf.smooth(kf.replace(R1=s * R1), u, y,
                               method="parallel").xT)(scales)
-    assert llpf.last_route("smooth") == "xla_scan"
+    assert llpf.last_route("smooth") == "temporal_parallel"
 
 
 def test_solution_route_provenance(kf, data):
     """Solutions record which execution path produced them (static
-    ``route`` field, VERDICT r4 #9)."""
+    ``route`` field)."""
     u, y = data
     sol = llpf.forward_trajectory(kf, u, y, method="sequential")
     assert sol.route == "xla_scan"
@@ -247,13 +263,11 @@ def test_solution_route_provenance(kf, data):
     assert psol.route == "xla_scan"
 
 
-def test_manifold_ukf_routes_to_fused_kernel(data, monkeypatch):
+def test_manifold_ukf_routes_to_fused_kernel(data):
     """Custom innovation/mean hooks (manifold filters, ukf.jl:563-601)
-    are INSIDE the fused-kernel scope since round 5 (traced in as
-    elementwise epilogues); custom covariance reductions stay on the
-    XLA scan, and manifold hooks must NOT take the affine→KF reduction
-    (the EKF equivalence only holds for the vector-space UT)."""
-    monkeypatch.setattr(routing, "_on_tpu", lambda: True)
+    must NOT take the affine→KF reduction under method='parallel' (the
+    EKF equivalence only holds for the vector-space UT); they run the
+    sequential scan, as does a custom covariance reduction."""
     u, y = data
     mm = llpf.UKFMeasurementModel(
         measurement=lambda x, u_, p, t: x, R2=R2, ny=2,
@@ -261,90 +275,76 @@ def test_manifold_ukf_routes_to_fused_kernel(data, monkeypatch):
     ukf = llpf.UnscentedKalmanFilter(
         dynamics=lambda x, u_, p, t: A @ x + B @ u_,
         measurement_model=mm, R1=R1, nu=1)
-    ll = llpf.loglik(ukf, u, y)
-    assert llpf.last_route("loglik") == "pallas_fused_scan"
+    ll = llpf.loglik(ukf, u, y, method="parallel")
+    assert llpf.last_route("loglik") == "xla_scan"
     assert jnp.isfinite(ll)
 
-    # custom covariance reduction: XLA scan
     mm2 = llpf.UKFMeasurementModel(
         measurement=lambda x, u_, p, t: x, R2=R2, ny=2,
         cov=lambda ys, ym, W: jnp.eye(2, dtype=jnp.float32))
     ukf2 = llpf.UnscentedKalmanFilter(
         dynamics=lambda x, u_, p, t: A @ x + B @ u_,
         measurement_model=mm2, R1=R1, nu=1)
-    _ = llpf.loglik(ukf2, u, y)
+    _ = llpf.loglik(ukf2, u, y, method="parallel")
     assert llpf.last_route("loglik") == "xla_scan"
 
 
-def test_affine_ukf_routes_to_temporal_parallel(monkeypatch):
-    """Affine-detected UKF/EKF with constant Jacobians reduce to the
-    exact plain-KF and take the temporal-parallel path (round 5); the
-    values match the sequential scan and nonlinear models stay on the
-    fused kernel."""
-    monkeypatch.setattr(routing, "_on_tpu", lambda: True)
+def _cv_ukf(scale=1.0, nonlinear=False):
     dt = 0.1
     Acv = jnp.array([[1, 0, dt, 0], [0, 1, 0, dt], [0, 0, 1, 0],
                      [0, 0, 0, 1]], jnp.float32)
     Ccv = jnp.array([[1, 0, 0, 0], [0, 1, 0, 0]], jnp.float32)
     R1cv = 0.1 * jnp.eye(4, dtype=jnp.float32)
     R2cv = 1.0 * jnp.eye(2, dtype=jnp.float32)
-    ukf = llpf.make_ukf(lambda x, u_, p, t: Acv @ x,
-                        lambda x, u_, p, t: Ccv @ x, R1cv, R2cv,
-                        ny=2, nu=0)
+    dyn = ((lambda x, u_, p, t: jnp.tanh(Acv @ x)) if nonlinear
+           else (lambda x, u_, p, t: Acv @ x))
+    return llpf.make_ukf(dyn, lambda x, u_, p, t: Ccv @ x, scale * R1cv,
+                         R2cv, ny=2, nu=0)
+
+
+def test_affine_ukf_routes_to_temporal_parallel():
+    """Affine-detected UKF/EKF with constant Jacobians reduce to the
+    exact plain-KF and take the temporal-parallel path under
+    method='parallel'; the values match the sequential scan, and
+    nonlinear models and method='auto' stay on the scan."""
+    ukf = _cv_ukf()
     ys = jax.random.normal(jax.random.PRNGKey(0), (512, 2), jnp.float32)
-    ll = llpf.loglik(ukf, None, ys)
+    ll = llpf.loglik(ukf, None, ys, method="parallel")
     assert llpf.last_route("loglik") == "temporal_parallel"
     ll_seq = llpf.loglik(ukf, None, ys, method="sequential")
     assert jnp.allclose(ll, ll_seq, rtol=1e-4)
 
-    sol = llpf.forward_trajectory(ukf, None, ys)
+    sol = llpf.forward_trajectory(ukf, None, ys, method="parallel")
     assert llpf.last_route("forward_trajectory") == "temporal_parallel"
     sol_seq = llpf.forward_trajectory(ukf, None, ys, method="sequential")
     assert float(jnp.max(jnp.abs(sol.xt - sol_seq.xt))) < 1e-3
     assert float(jnp.max(jnp.abs(sol.e - sol_seq.e))) < 1e-3
     assert sol.y.shape == ys.shape and sol.u.shape[0] == ys.shape[0]
 
-    # short trajectories stay below the parallel threshold
-    _ = llpf.loglik(ukf, None, ys[:64])
-    assert llpf.last_route("loglik") == "pallas_fused_scan"
+    _ = llpf.loglik(ukf, None, ys)
+    assert llpf.last_route("loglik") == "xla_scan"
 
     # nonlinear callbacks must not take the reduction
-    nl = llpf.make_ukf(lambda x, u_, p, t: jnp.tanh(Acv @ x),
-                       lambda x, u_, p, t: Ccv @ x, R1cv, R2cv,
-                       ny=2, nu=0)
-    _ = llpf.loglik(nl, None, ys)
-    assert llpf.last_route("loglik") == "pallas_fused_scan"
+    _ = llpf.loglik(_cv_ukf(nonlinear=True), None, ys, method="parallel")
+    assert llpf.last_route("loglik") == "xla_scan"
 
 
-def test_affine_reduction_grad_matches_sequential(monkeypatch):
-    """jax.grad through the routed affine reduction: tangents w.r.t.
-    the DATA flow through the temporal-parallel pipeline (the assoc
-    kernel's custom_jvp reroutes off-kernel), and vmapping/grad over
-    filter parameters falls back via the probe's tracer rejection."""
-    monkeypatch.setattr(routing, "_on_tpu", lambda: True)
-    dt = 0.1
-    Acv = jnp.array([[1, 0, dt, 0], [0, 1, 0, dt], [0, 0, 1, 0],
-                     [0, 0, 0, 1]], jnp.float32)
-    Ccv = jnp.array([[1, 0, 0, 0], [0, 1, 0, 0]], jnp.float32)
-    R1cv = 0.1 * jnp.eye(4, dtype=jnp.float32)
-    R2cv = 1.0 * jnp.eye(2, dtype=jnp.float32)
-    ukf = llpf.make_ukf(lambda x, u_, p, t: Acv @ x,
-                        lambda x, u_, p, t: Ccv @ x, R1cv, R2cv,
-                        ny=2, nu=0)
+def test_affine_reduction_grad_matches_sequential():
+    """jax.grad through the routed affine reduction: tangents w.r.t. the
+    DATA flow through the temporal-parallel pipeline; gradients w.r.t.
+    filter parameters see traced closures, so the probe declines the
+    reduction and the sequential scan differentiates."""
+    ukf = _cv_ukf()
     ys = 0.3 * jax.random.normal(jax.random.PRNGKey(1), (300, 2),
                                  jnp.float32)
-    g_par = jax.grad(lambda y_: llpf.loglik(ukf, None, y_))(ys)
+    g_par = jax.grad(lambda y_: llpf.loglik(ukf, None, y_,
+                                            method="parallel"))(ys)
     g_seq = jax.grad(lambda y_: llpf.loglik(ukf, None, y_,
                                             method="sequential"))(ys)
     assert jnp.allclose(g_par, g_seq, rtol=1e-3, atol=1e-4)
 
-    # parameter gradients: the probe sees traced closures -> no
-    # reduction; the fused-kernel custom_jvp reroutes to the XLA scan
     def llr(s):
-        u2 = llpf.make_ukf(lambda x, u_, p, t: Acv @ x,
-                           lambda x, u_, p, t: Ccv @ x, s * R1cv, R2cv,
-                           ny=2, nu=0)
-        return llpf.loglik(u2, None, ys)
+        return llpf.loglik(_cv_ukf(s), None, ys, method="parallel")
 
     g = float(jax.grad(llr)(jnp.float32(1.0)))
     eps = 1e-2

@@ -1,17 +1,15 @@
-"""Round-4 mesh composition of the whole-scan kernels (VERDICT r3 ask #5).
+"""Mesh compositions over a device mesh.
 
-(a) ``sharded_pf_loglik_fused`` — per-device fused PF segments composed
-    with global logsumexp/Neff collectives and the distributed route
-    exchange at segment boundaries;
+(a) ``sharded_pf_loglik_fused`` — per-device resampling-free PF segments
+    (``pf_segment``) composed with global logsumexp/Neff collectives and
+    the distributed exchange at segment boundaries;
 (b) ``sharded_filter_scan`` / ``time_sharded_parallel_kf`` — time-axis-
-    sharded associative Kalman scan (local fused scan + cross-device
-    carry combine).
+    sharded associative Kalman scan (local scan + cross-device carry
+    combine).
 
-Runs on the 8-virtual-device CPU mesh from tests/conftest.py; the
-per-device segment body exercises the XLA-equivalent path there (the
-Mosaic kernel is exercised single-chip in test_pf_scan.py and on
-hardware by bench.py's certs) — what is under test here is the
-composition: the collectives, the weight bookkeeping, and the exchange.
+Runs on the 8-virtual-device CPU mesh from tests/conftest.py; what is
+under test is the composition: the collectives, the weight bookkeeping,
+and the exchange.
 """
 import jax
 import jax.numpy as jnp
@@ -21,7 +19,6 @@ from jax.sharding import Mesh
 
 import lowlevelparticlefilters_jl_tpu as llpf
 from lowlevelparticlefilters_jl_tpu.parallel.sharded import (
-    pf_sharded_scan_supported,
     sharded_pf_loglik_fused,
     time_sharded_parallel_kf,
 )
@@ -58,7 +55,6 @@ def _pf(N=16384):
 def test_sharded_pf_loglik_matches_kf(sim):
     kf, u, y, ll_kf = sim
     pf = _pf()
-    assert pf_sharded_scan_supported(pf, 8)
     mesh = _mesh(8, "particles")
     ll = float(sharded_pf_loglik_fused(pf, u, y, jax.random.PRNGKey(3),
                                        mesh, segment=8))
@@ -78,7 +74,7 @@ def test_sharded_pf_single_device_consistent(sim):
 
 
 def test_sharded_pf_missing_measurements(sim):
-    # NaN rows must be ll-neutral through the segment kernel contract
+    # NaN rows must be ll-neutral through the segment contract
     kf, u, y, _ = sim
     pf = _pf(N=8192)
     mesh = _mesh(8, "particles")
@@ -124,10 +120,10 @@ def test_time_sharded_timevarying(sim):
 
 
 def test_sharded_pf_long_trajectory_scan():
-    """T=4096 through the scan-ified segment loop (VERDICT r4 #3): the
-    round-4 Python loop inlined nseg kernel calls into one jaxpr (a
-    compile cliff at production T); the lax.scan body compiles ONCE.
-    Compile time must stay ~flat in T and values must stay calibrated."""
+    """T=4096 through the scan-ified segment loop: a Python loop would
+    inline nseg segment bodies into one jaxpr (a compile cliff at
+    production T); the lax.scan body compiles ONCE.  Compile time must
+    stay ~flat in T and values must stay calibrated."""
     import time
 
     kf = llpf.KalmanFilter(A, B, jnp.eye(2, dtype=jnp.float32), 0, R1, R2)
@@ -157,8 +153,8 @@ def test_sharded_pf_long_trajectory_scan():
 
 
 def test_time_sharded_parallel_smooth(sim):
-    """Time-sharded RTS smoother (VERDICT r4 #4) against the single-chip
-    parallel smoother and the sequential oracle."""
+    """Time-sharded RTS smoother against the single-device parallel
+    smoother and the sequential oracle."""
     kf, u, y, _ = sim
     from lowlevelparticlefilters_jl_tpu.parallel.sharded import (
         time_sharded_parallel_smooth)
@@ -194,7 +190,7 @@ def test_time_sharded_smooth_timevarying(sim):
 
 def test_time_sharded_memory_scales_per_device(sim):
     """Per-device peak memory must scale O(T/D): element construction
-    now lives INSIDE the shard_map (VERDICT r4 #4).  Asserted via XLA's
+    lives INSIDE the shard_map.  Asserted via XLA's
     compiled memory analysis on the CPU mesh — the per-device temp
     allocation at D=8 must be well below the D=1 figure for the same T."""
     kf, _, _, _ = sim

@@ -1,6 +1,6 @@
 """Square-root filter family: factored smoother + measurement-model dispatch.
 
-Round-2 closures of VERDICT items #3/#4: the backward pass stays on
+The backward pass stays on
 Cholesky factors (reference keeps factors through the loop,
 /root/reference/src/sq_ekf.jl:254-296; this package additionally propagates
 the *smoothed* covariance as a factor via a Joseph-form QR), and
